@@ -1,0 +1,1 @@
+from .ops import *  # noqa: F401,F403
