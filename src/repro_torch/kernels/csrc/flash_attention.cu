@@ -24,7 +24,10 @@
 //
 // Layout: q (B, Sq, H, D), k/v (B, Sk, K, D) with the last dimension
 // contiguous and the other strides given in elements; out is a
-// contiguous (B, Sq, H, D).  D is a multiple of 8, at most 128.
+// contiguous (B, Sq, H, D).  D is a multiple of 8, at most 256: each
+// thread holds 16 output columns of every row it owns past D = 128 (8 up
+// to it), and at D = 256 the block takes 214,528 bytes of shared memory,
+// one block per SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -33,7 +36,7 @@ namespace {
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // kv rows per tile
 constexpr int THREADS = 256;  // 16 x 16 thread grid
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 constexpr float NEG = -1e30f;
 
 struct Params {
@@ -69,7 +72,8 @@ size_t smem_bytes(int D) {
           size_t(BQ) * (BK + 1) + 3 * BQ);
 }
 
-template <typename T>
+// NJ: output columns tx + 16 j, j < NJ, that each thread accumulates
+template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D;
@@ -107,12 +111,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   k_begin -= k_begin % BK;
 
-  const int nd = (D + 15) / 16;  // output columns per thread, <= 8
-  float acc[4][8];
+  const int nd = (D + 15) / 16;  // output columns per thread, <= NJ
+  float acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // previous tile fully consumed; Q tile and stats set
@@ -189,14 +193,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     for (int i = 0; i < 4; ++i) {
       const float a = row_a[ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= a;
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= a;
     }
     for (int c = 0; c < BK; ++c) {
       float pr[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty + 16 * i) * (BK + 1) + c];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int dc = tx + 16 * j;
         if (j < nd && dc < D) {
           const float vv = Vs[c * D + dc];
@@ -216,23 +220,29 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
     T* orow = out + ((long long)(b) * p.Sq + s) * p.H * D + (long long)h * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const int dc = tx + 16 * j;
       if (j < nd && dc < D) orow[dc] = from_f32<T>(acc[i][j] * inv);
     }
   }
 }
 
-template <typename T>
+template <typename T, int NJ>
 int launch(const Params& p, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<T, NJ><<<grid, THREADS, smem, stream>>>(p);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const Params& p, int B, cudaStream_t stream) {
+  if (p.D <= 128) return launch<T, 8>(p, B, stream);
+  return launch<T, 16>(p, B, stream);
 }
 
 }  // namespace
@@ -271,7 +281,7 @@ extern "C" int flash_attention_fwd(
   p.window = window;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, B, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
+  if (dtype == 0) return dispatch<float>(p, B, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(p, B, s);
   return -1;
 }

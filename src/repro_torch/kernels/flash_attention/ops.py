@@ -79,9 +79,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype}; the kernel takes one of float32, "
                          f"bfloat16 for all three")
-    if D % 8 or D > 128:
+    if D % 8 or D > 256:
         raise ValueError(f"flash_attention: head dim {D} is not a multiple "
-                         f"of 8 up to 128")
+                         f"of 8 up to 256")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)

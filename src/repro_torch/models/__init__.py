@@ -1,6 +1,7 @@
-"""Model substrate: config-driven decoder with the hand-written attention
-kernels, and the weight conversion from the JAX reference."""
-from . import convert, layers, transformer
+"""Model substrate: config-driven decoder (attention, RG-LRU and MoE
+blocks) with the hand-written kernels, and the weight conversion from the
+JAX reference."""
+from . import convert, layers, moe, recurrent, transformer
 from .convert import params_from_numpy
 from .transformer import (
     cast_params,
@@ -12,6 +13,6 @@ from .transformer import (
 )
 
 __all__ = [
-    "convert", "layers", "transformer", "params_from_numpy", "cast_params",
+    "convert", "layers", "moe", "recurrent", "transformer", "params_from_numpy", "cast_params",
     "decode_step", "forward", "init_cache", "init_params", "prefill",
 ]

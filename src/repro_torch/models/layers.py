@@ -1,4 +1,5 @@
-"""Shared model layers: norms, RoPE, GQA attention, SwiGLU.
+"""Shared model layers: norms, RoPE, GQA attention (global, and local
+over a ring-buffer cache), SwiGLU.
 
 Attention calls the hand-written kernels (``repro_torch.kernels``):
 flash attention for a prompt, decode attention for one token against a
@@ -80,15 +81,16 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     One query token (decode) goes to the decode-attention kernel: rows
     below ``valid_len`` (default ``q_offset + 1`` — the reference's
     ``kpos <= q_offset`` mask) are attended.  A prompt at ``q_offset``
-    0 goes to the flash-attention kernel (top-left causal).  A prompt at
-    a later offset (chunked prefill) is not ported yet.
+    0 goes to the flash-attention kernel (top-left causal, optional
+    ``window``).  A prompt at a later offset (chunked prefill) and
+    windowed decode on a cache that is not a ring are not ported yet.
     """
     B, Sq, H, D = q.shape
     if Sq == 1:
         if window is not None:
             raise NotImplementedError(
-                "windowed decode (local attention) is not ported yet "
-                "(recurrent-family slice)")
+                "windowed decode on a non-ring cache is not ported yet; "
+                "local attention decodes over a ring cache (valid_len)")
         if valid_len is None:
             valid_len = torch.full((B,), q_offset + 1, dtype=torch.int32,
                                    device=q.device)
@@ -102,8 +104,11 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                            scale=scale)
 
 
-def init_attn(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
-    """Attention weights stacked over ``count`` layers: (count, in, out)."""
+def init_attn(cfg, gen: torch.Generator, device, count: int = 1,
+              local: bool = False) -> Params:
+    """Attention weights stacked over ``count`` layers: (count, in, out).
+    Local attention has the same weights: ``local`` changes nothing and
+    is kept only to match the reference's signature."""
     d, hd = cfg.d_model, cfg.head_dim_
     H, K = cfg.n_heads, cfg.n_kv_heads
     dt = getattr(torch, cfg.param_dtype)
@@ -116,15 +121,17 @@ def init_attn(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
 
 
 def attn_forward(cfg, p: Params, x, positions, cache=None, *,
-                 valid_len=None):
+                 local: bool = False, valid_len=None):
     """x: (B, S, d).  cache: dict(k, v, length) of one layer, or None.
 
     Returns (out, new_cache).  KV cache layout: (B, S_max, K, hd); the
     new k/v rows are written into the cache tensors IN PLACE (no copy of
-    the cache per token), and ``length`` is a host int.  ``valid_len``
-    may carry the decode mask's device tensor, made once per step.
-    Global attention only: the ring-buffer local-attention branch waits
-    for the recurrent-family slice.
+    the cache per token), and ``length`` is a host int counting every
+    token seen.  ``valid_len`` may carry the decode mask's device tensor,
+    made once per step.  ``local``: sliding-window attention over
+    ``cfg.rec.local_window``; its cache of W <= window rows is a ring
+    holding the last W tokens (post-RoPE keys, so the rotation survives
+    the wrap), as the reference's (``layers.py`` ring branch).
     """
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -134,7 +141,11 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
     v = (x @ p["wv"].to(cdt)).reshape(B, S, K, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
-    if cache is not None:
+    window = cfg.rec.local_window if local else None
+    if cache is not None and local:
+        out, new_cache = _ring_attention(q, k, v, cache, window, valid_len,
+                                         cdt)
+    elif cache is not None:
         length = cache["length"]
         k_cache, v_cache = cache["k"], cache["v"]
         k_cache[:, length:length + S] = k.to(k_cache.dtype)
@@ -151,10 +162,51 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
                             v_cache[:, :S].to(cdt), q_offset=length)
         new_cache = {"k": k_cache, "v": v_cache, "length": length + S}
     else:
-        out = attention(q, k, v, causal=True)
+        out = attention(q, k, v, causal=True, window=window)
         new_cache = None
     out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
     return out, new_cache
+
+
+def _ring_attention(q, k, v, cache, window: int, valid_len, cdt):
+    """Local attention against a ring cache of W rows (W <= window).
+
+    Decode writes row ``length % W`` and attends to the ``min(length + 1,
+    W)`` valid rows: the ring holds exactly the past window, so validity
+    is the whole mask.  A fresh prefill attends to its own k/v with the
+    window and then writes its last ``min(S, W)`` rows at their ring
+    slots ``(S - tail .. S - 1) % W``, a rotation done as two slices."""
+    B, S = q.shape[:2]
+    length = cache["length"]
+    k_cache, v_cache = cache["k"], cache["v"]
+    W = k_cache.shape[1]
+    if W > window:
+        raise NotImplementedError(
+            "a local-attention cache longer than its window is not ported; "
+            "init_cache builds W = min(max_len, local_window)")
+    if S == 1:
+        slot = length % W
+        k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
+        v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
+        if valid_len is None:
+            valid_len = torch.full((B,), min(length + 1, W),
+                                   dtype=torch.int32, device=q.device)
+        out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
+                        valid_len=valid_len)
+    else:
+        if length != 0:
+            raise NotImplementedError(
+                "chunked prefill (a prompt at cache offset > 0) is not "
+                "ported yet; see ROADMAP.md")
+        out = attention(q, k, v, causal=True, window=window)
+        tail = min(S, W)
+        start = (S - tail) % W
+        first = min(tail, W - start)
+        for cache_t, new in ((k_cache, k), (v_cache, v)):
+            new = new[:, S - tail:].to(cache_t.dtype)
+            cache_t[:, start:start + first] = new[:, :first]
+            cache_t[:, :tail - first] = new[:, first:]
+    return out, {"k": k_cache, "v": v_cache, "length": length + S}
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype, device,

@@ -12,7 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (decode_attention, decode_attention_plain,  # noqa: E402
-                                 flash_attention, flash_attention_plain)
+                                 flash_attention, flash_attention_plain,
+                                 moe_gating, moe_gating_plain, rglru_scan,
+                                 rglru_scan_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +55,10 @@ def _f32(*ts):
     (1, 8, 8, 64, 128, None),        # MHA, head dim 128
     (1, 32, 32, 300, 96, None),      # phi3-mini heads, ragged prompt
     (1, 32, 8, 200, 128, None),      # GQA
+    (1, 40, 8, 512, 128, None),      # llama4's prefill: G 5
+    (1, 10, 1, 300, 256, 128),       # recurrentgemma: MQA, D 256, window
+    (2, 10, 1, 150, 256, None),
+    (1, 4, 2, 70, 200, None),        # D between 128 and 256
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, H, K, S, D, win):
     rng = np.random.default_rng(0)
@@ -86,6 +92,10 @@ def test_flash_kernel_reads_a_cache_slice_in_place(cuda):
     (3, 2, 1, 64, 16),
     (1, 32, 32, 1024, 96),           # phi3-mini decode
     (2, 24, 4, 200, 128),            # 6 query heads per kv head
+    (1, 10, 1, 2048, 256),           # recurrentgemma: G 10, D 256
+    (3, 20, 2, 300, 256),
+    (2, 40, 8, 500, 128),            # llama4: G 5
+    (1, 36, 2, 100, 200),            # G 18 in three blocks, D 200
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, B, H, K, S, D):
     rng = np.random.default_rng(2)
@@ -117,6 +127,61 @@ def test_decode_kernel_valid_len_edges(cuda):
     _close(out[1], v[1, 0].repeat_interleave(H // K, dim=0), torch.float32)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,dr", [
+    (1, 512, 2560),                  # recurrentgemma prefill
+    (4, 37, 96),                     # ragged time and channels
+    (2, 100, 64),
+])
+def test_rglru_scan_kernel_matches_plain(cuda, dtype, B, S, dr):
+    """The kernel rounds each step as the plain version does: f32 is
+    exact, bf16 one rounding of the same f32 value."""
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (B, S, dr), dtype, cuda)
+    a = torch.sigmoid(_randn(rng, (B, S, dr), torch.float32, cuda)).to(dtype)
+    h0 = _randn(rng, (B, dr), torch.float32, cuda)
+    before = rglru_scan.launches
+    out = rglru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    assert out.dtype == dtype
+    torch.testing.assert_close(out, rglru_scan_plain(x, a, h0), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("T,E,k,C", [
+    (1, 128, 1, 8),                  # llama4 decode
+    (512, 128, 1, 8),                # llama4 prefill
+    (4096, 160, 6, 64),              # deepseek-v2 routing, drops
+    (100, 8, 2, 16),
+    (3000, 4, 2, 8),                 # many tiles of entries per expert
+])
+def test_moe_gating_kernel_matches_plain(cuda, T, E, k, C):
+    rng = np.random.default_rng(T)
+    logits = _randn(rng, (T, E), torch.float32, cuda) * 3
+    before = moe_gating.launches
+    got = moe_gating(logits, top_k=k, capacity=C)
+    torch.cuda.synchronize()
+    assert moe_gating.launches == before + 1
+    _gating_equal(got, moe_gating_plain(logits, top_k=k, capacity=C))
+
+
+def test_moe_gating_kernel_ties_take_the_lower_expert(cuda):
+    rng = np.random.default_rng(6)
+    logits = torch.tensor(rng.integers(0, 3, (700, 64)), dtype=torch.float32,
+                          device=cuda)
+    _gating_equal(moe_gating(logits, top_k=4, capacity=24),
+                  moe_gating_plain(logits, top_k=4, capacity=24))
+
+
+def _gating_equal(got, want):
+    eids, gates, slots, keep = got
+    torch.testing.assert_close(eids, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(slots, want[2], rtol=0, atol=0)
+    torch.testing.assert_close(keep, want[3], rtol=0, atol=0)
+    torch.testing.assert_close(gates, want[1], rtol=0, atol=1e-6)
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 4, 2, 12), device=cuda)       # head dim 12
     with pytest.raises(ValueError):
@@ -127,6 +192,14 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         decode_attention(q16[:, 0], q16, q16,
                          torch.ones(1, dtype=torch.int64, device=cuda))
+    x = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError):
+        rglru_scan(x, x, torch.zeros((1, 8), device=cuda).bfloat16())
+    with pytest.raises(ValueError):
+        moe_gating(torch.zeros((4, 300), device=cuda), top_k=1, capacity=8)
+    with pytest.raises(ValueError):
+        moe_gating(torch.zeros((4, 8), device=cuda).bfloat16(), top_k=1,
+                   capacity=8)
 
 
 # ---------------------------------------------------------------------------

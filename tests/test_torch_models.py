@@ -1,6 +1,7 @@
-"""The port's decoder against the JAX package's: reduced phi3-mini at f32
-compute, with the JAX parameters carried over through
-``params_from_numpy``, gives the same logits and greedy tokens."""
+"""The port's decoder against the JAX package's: reduced phi3-mini,
+recurrentgemma and llama4 at f32 compute, with the JAX parameters carried
+over through ``params_from_numpy``, give the same logits and greedy
+tokens; the RG-LRU and MoE blocks match on their own."""
 import dataclasses
 
 import numpy as np
@@ -16,24 +17,31 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config, list_archs, reduced  # noqa: E402
+from repro.configs.base import LayerGroup  # noqa: E402
 from repro.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
+from repro.models import recurrent as jrec  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import recurrent as trec  # noqa: E402
+from repro_torch.models import transformer as tt  # noqa: E402
 
 ARCH = "phi3-mini-3.8b"
+RG, LLAMA4 = "recurrentgemma-2b", "llama4-maverick-400b-a17b"
 CPU = torch.device("cpu")
 #: f32 on both sides; the sums run in another order
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _cfgs():
+def _cfgs(arch=ARCH, **kw):
     """The same reduced config from each package, at f32 compute."""
-    return (dataclasses.replace(reduced(get_config(ARCH)),
-                                compute_dtype="float32"),
-            dataclasses.replace(tconfigs.reduced(tconfigs.get_config(ARCH)),
-                                compute_dtype="float32"))
+    return (dataclasses.replace(reduced(get_config(arch)),
+                                compute_dtype="float32", **kw),
+            dataclasses.replace(tconfigs.reduced(tconfigs.get_config(arch)),
+                                compute_dtype="float32", **kw))
 
 
 @pytest.fixture(scope="module")
@@ -137,8 +145,7 @@ def test_chunked_prefill_is_not_ported_yet(rig):
         tm.prefill(tcfg, tp, torch.tensor([[4, 5]]), tc)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "recurrentgemma-2b",
-                                  "xlstm-1.3b", "llama4-maverick-400b-a17b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "xlstm-1.3b",
                                   "qwen2-vl-7b", "musicgen-large"])
 def test_later_families_raise_not_implemented(arch):
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
@@ -153,3 +160,191 @@ def test_no_silent_cpu_fallback(monkeypatch):
         tm.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tm.init_cache(cfg, 1, 8)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent (recurrentgemma) and MoE (llama4) families
+# ---------------------------------------------------------------------------
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _tree_close(got, want, **tol):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _tree_close(got[k], want[k], **tol)
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _tree_close(g, w, **tol)
+    else:
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.fixture(scope="module", params=[RG, LLAMA4])
+def family(request):
+    """(jcfg, tcfg, jax params, port params, jitted JAX prefill/decode)."""
+    jcfg, tcfg = _cfgs(request.param)
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    jpre = jax.jit(lambda p, t, c: prefill(jcfg, p, t, c))
+    jdec = jax.jit(lambda p, t, c: decode_step(jcfg, p, t, c))
+    return jcfg, tcfg, jp, tp, jpre, jdec
+
+
+def test_family_params_keep_the_reference_layout(family):
+    jcfg, tcfg, jp, tp, _, _ = family
+    mine = tm.init_params(tcfg, torch.Generator().manual_seed(0), CPU)
+    assert _shapes(mine) == _shapes(tp)
+    assert _shapes(jax.tree.map(np.asarray, jp)) == _shapes(tp)
+
+
+def test_norm2_and_ffn_only_where_the_sub_layer_has_an_ffn():
+    groups = (LayerGroup(pattern=("rglru", "attn_local"), count=2,
+                         ffn=("dense", "none")),)
+    jcfg, tcfg = _cfgs(RG, groups=groups)
+    jp = jax.tree.map(np.asarray, init_params(jcfg, jax.random.PRNGKey(0)))
+    mine = tm.init_params(tcfg, torch.Generator().manual_seed(0), CPU)
+    assert _shapes(mine) == _shapes(jp)
+    assert set(mine["groups"][0]["sub1"]) == {"norm1", "mixer"}
+
+
+def test_family_forward_logits_match(family):
+    jcfg, tcfg, jp, tp, _, _ = family
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (2, 13))
+    jlog, _, _ = forward(jcfg, jp, jnp.asarray(toks, jnp.int32))
+    tlog, _ = tm.forward(tcfg, tp, torch.from_numpy(toks))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+
+
+@pytest.mark.parametrize("prompt_len,max_len", [
+    (11, 32),
+    (28, 64),      # recurrentgemma: the ring of 32 wraps during decode
+    (40, 64),      # ... and during prefill, which keeps only the tail
+])
+def test_family_prefill_logits_and_greedy_tokens_match(family, prompt_len,
+                                                       max_len):
+    """Prefill logits at 1e-4 and 8 greedy decode tokens identical.  The
+    caches are f32 on both sides: a bf16 cache rounds values that differ
+    in the last f32 bit to different bf16 neighbours."""
+    jcfg, tcfg, jp, tp, jpre, jdec = family
+    prompt = np.random.default_rng(2).integers(0, jcfg.vocab_size,
+                                               prompt_len).astype(np.int32)
+    jc = init_cache(jcfg, 1, max_len, dtype=jnp.float32)
+    jlog, jc = jpre(jp, jnp.asarray(prompt[None]), jc)
+    tc = tm.init_cache(tcfg, 1, max_len, dtype=torch.float32, device=CPU)
+    tlog, tc = tm.prefill(tcfg, tp, torch.from_numpy(prompt[None]), tc)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    want, got = [int(jnp.argmax(jlog[0]))], [int(tlog[0].argmax())]
+    for _ in range(8):
+        jlog, jc = jdec(jp, jnp.asarray([want[-1]], jnp.int32), jc)
+        want.append(int(jnp.argmax(jlog[0])))
+        tlog, tc = tm.decode_step(tcfg, tp, torch.tensor([got[-1]]), tc)
+        got.append(int(tlog[0].argmax()))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    assert got == want
+    assert tt._cache_length(tc) == prompt_len + 8
+    _tree_close(tc, jax.tree.map(np.asarray, jc), **TOL)
+
+
+def test_cache_length_skips_recurrent_states():
+    """recurrentgemma's first sub-cache is an RG-LRU state, which has no
+    length: reading the first sub-cache's length was a KeyError."""
+    _, tcfg = _cfgs(RG)
+    caches = tm.init_cache(tcfg, 1, 16, device=CPU)
+    assert "length" not in caches[0]["sub0"]
+    assert tt._cache_length(caches) == 0
+    params = tm.init_params(tcfg, torch.Generator().manual_seed(0), CPU)
+    _, caches = tm.prefill(tcfg, params, torch.tensor([[1, 2, 3, 4, 5]]),
+                           caches)
+    assert tt._cache_length(caches) == 5
+    assert tt._cache_length([{"sub0": caches[0]["sub0"]}]) == 0
+
+
+def test_local_attention_cache_is_a_ring_of_the_window():
+    _, tcfg = _cfgs(RG)
+    W = tcfg.rec.local_window
+    for max_len, rows in ((16, 16), (4 * W, W)):
+        caches = tm.init_cache(tcfg, 2, max_len, device=CPU)
+        assert caches[0]["sub2"]["k"].shape == (2, 2, rows, 1, tcfg.head_dim_)
+        assert caches[1]["sub0"]["h"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("S", [13, 1])
+def test_rglru_forward_matches_reference(S):
+    """One RG-LRU block, with a state (prefill of 13, then one decode
+    token from the state it left) and, at S = 13, without one."""
+    jcfg, tcfg = _cfgs(RG)
+    jp = jrec.init_rglru_block(jcfg, jax.random.PRNGKey(3))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 13, jcfg.d_model)).astype(np.float32)
+    js = jrec.init_rglru_state(jcfg, 2, jnp.float32)
+    ts = {k: v[0] for k, v in
+          trec.init_rglru_state(tcfg, 2, torch.float32, CPU).items()}
+    jout, js = jrec.rglru_forward(jcfg, jp, jnp.asarray(x), js)
+    tout, ts = trec.rglru_forward(tcfg, tp, torch.from_numpy(x), ts)
+    if S == 1:
+        x1 = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
+        jout, js = jrec.rglru_forward(jcfg, jp, jnp.asarray(x1), js)
+        tout, ts = trec.rglru_forward(tcfg, tp, torch.from_numpy(x1), ts)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    _tree_close(ts, js, **TOL)
+    assert ts["h"].dtype == torch.float32
+    if S == 13:
+        jno, _ = jrec.rglru_forward(jcfg, jp, jnp.asarray(x))
+        tno, none = trec.rglru_forward(tcfg, tp, torch.from_numpy(x))
+        assert none is None
+        np.testing.assert_allclose(tno.numpy(), np.asarray(jno), **TOL)
+
+
+@pytest.mark.parametrize("top_k,capacity_factor,tokens", [
+    (1, 8.0, 14),      # llama4's top-1, dropless at this size
+    (2, 8.0, 14),
+    (2, 0.25, 80),     # 160 entries for 8 experts of capacity 8: drops
+])
+def test_moe_forward_matches_reference(top_k, capacity_factor, tokens):
+    """moe_forward (shared expert and aux included) and the routed part
+    alone (_moe_local) against the reference's argsort dispatch."""
+    jcfg, tcfg = _cfgs(LLAMA4)
+    moe = dataclasses.replace(jcfg.moe, top_k=top_k,
+                              capacity_factor=capacity_factor)
+    jcfg = dataclasses.replace(jcfg, moe=moe)
+    tcfg = dataclasses.replace(tcfg, moe=moe)
+    jp = jmoe.init_moe(jcfg, jax.random.PRNGKey(4))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    x = np.random.default_rng(4).standard_normal(
+        (2, tokens // 2, jcfg.d_model)).astype(np.float32)
+    jout, jaux = jmoe.moe_forward(jcfg, jp, jnp.asarray(x))
+    tout, taux = tmoe.moe_forward(tcfg, tp, torch.from_numpy(x))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+    jloc, _ = jmoe._moe_local(jcfg, jp, jnp.asarray(x), jnp.float32)
+    tloc, _ = tmoe._moe_local(tcfg, tp, torch.from_numpy(x), torch.float32)
+    np.testing.assert_allclose(tloc.numpy(), np.asarray(jloc), **TOL)
+    xt = torch.from_numpy(x.reshape(tokens, -1))
+    buf, _, keep, _, _ = tmoe._group_dispatch(
+        tcfg, tp["router"], xt, torch.float32)
+    jbuf = jmoe._group_dispatch(jcfg, jp["router"], jnp.asarray(xt.numpy()),
+                                jnp.float32)[0]
+    np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+    assert bool(keep.all()) == (capacity_factor > 1)
+
+
+def test_cast_params_casts_the_reference_set():
+    """Matmul weights, conv taps and shared experts to the compute dtype;
+    the RG-LRU gates, lam and the router stay f32, as the reference reads
+    them."""
+    out = {}
+    for arch in (RG, LLAMA4):
+        cfg = tconfigs.reduced(tconfigs.get_config(arch))     # bf16 compute
+        out[arch] = tm.cast_params(
+            cfg, tm.init_params(cfg, torch.Generator().manual_seed(0), CPU))
+    rg = out[RG]["groups"][0]["sub0"]["mixer"]
+    assert {k for k, v in rg.items() if v.dtype == torch.bfloat16} \
+        == {"w_x", "w_gate", "conv_w", "conv_b", "w_out"}
+    moe = out[LLAMA4]["groups"][0]["sub0"]["ffn"]
+    assert moe["router"].dtype == torch.float32
+    assert all(w.dtype == torch.bfloat16 for part in ("experts", "shared")
+               for w in moe[part].values())

@@ -1,6 +1,7 @@
 """The port's serving engine against the JAX package's: the same requests
-give the same greedy tokens, inline and under the port's executor; and the
-port stands alone — no module of it imports JAX or the JAX package."""
+give the same greedy tokens for phi3-mini, recurrentgemma and llama4,
+inline and under the port's executor; and the port stands alone — no
+module of it imports JAX or the JAX package."""
 import ast
 import dataclasses
 import os
@@ -97,6 +98,59 @@ def test_engine_greedy_determinism_and_oversize(rig):
 def test_serve_launcher_on_cpu(capsys):
     from repro_torch.launch import serve
     assert serve.main(["--arch", ARCH, "--reduced", "--requests", "3",
+                       "--max-new", "2", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.startswith("3 requests / 6 tokens")
+
+
+@pytest.fixture(scope="module",
+                params=["recurrentgemma-2b", "llama4-maverick-400b-a17b"])
+def family(request):
+    """A reduced recurrent or MoE model in both packages, and the JAX
+    engine's tokens for PROMPTS (max_seq 48: recurrentgemma's ring of 32
+    rows wraps on the longest request)."""
+    jcfg = dataclasses.replace(reduced(get_config(request.param)),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(
+        tconfigs.reduced(tconfigs.get_config(request.param)),
+        compute_dtype="float32")
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    eng = JaxEngine(jcfg, jp, max_slots=2, max_seq=48)
+    for p in FAMILY_PROMPTS:
+        eng.submit(p, max_new_tokens=6)
+    return tcfg, tp, {r.id: r.generated for r in eng.run()}
+
+
+FAMILY_PROMPTS = [np.arange(3 + 9 * i) * 7 % 256 for i in range(4)]
+
+
+@pytest.mark.parametrize("workers", [None, 1, 2])
+def test_family_engine_matches_jax_engine(family, workers):
+    """recurrentgemma and llama4, inline and under the executor: the JAX
+    engine's greedy tokens."""
+    tcfg, tp, want = family
+
+    def run(executor=None):
+        eng = ServingEngine(tcfg, tp, max_slots=2, max_seq=48,
+                            executor=executor)
+        for p in FAMILY_PROMPTS:
+            eng.submit(p, max_new_tokens=6)
+        return {r.id: r.generated for r in eng.run()}
+
+    if workers is None:
+        got = run()
+    else:
+        with Executor(num_workers=workers, devices=[CPU]) as ex:
+            got = run(ex)
+    assert got == want
+    assert all(len(t) == 6 for t in got.values())
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b",
+                                  "llama4-maverick-400b-a17b"])
+def test_serve_launcher_on_cpu_for_the_new_families(arch, capsys):
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", arch, "--reduced", "--requests", "3",
                        "--max-new", "2", "--device", "cpu"]) == 0
     assert capsys.readouterr().out.startswith("3 requests / 6 tokens")
 
