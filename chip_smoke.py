@@ -438,7 +438,12 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     i = 1 if long_prompt is None else long_prompt
     caches = init_cache(cfg, 1, max_seq, device=dev)
     prompt = torch.as_tensor(prompts[i][None], dtype=torch.long, device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
     logits, caches = prefill(cfg, p, prompt, caches)
+    torch.cuda.synchronize(dev)
+    print(f"direct prefill of {prompt.shape[1]} tokens (warm): "
+          f"{time.perf_counter() - t0} s")
     logits2, caches = decode_step(cfg, p, logits.argmax(-1), caches)
     for name, lg in (("prefill", logits), ("decode", logits2)):
         if tuple(lg.shape) != (1, cfg.vocab_size) \

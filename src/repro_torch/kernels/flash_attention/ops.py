@@ -24,6 +24,14 @@ _ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 9
              + [_I, _I, ctypes.c_float, _P])
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """TMA steps in multiples of 16 bytes from a 16-byte aligned base (a
+    dimension of extent 1 is never stepped)."""
+    return t.data_ptr() % 16 == 0 and all(
+        st > 0 and st % 8 == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
@@ -84,6 +92,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"of 8 up to 256")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(map(_tma_ready, (q, k, v))):
+        raise ValueError("flash_attention: bf16 tensors are read with TMA: "
+                         "strides in multiples of 8 elements and a 16-byte "
+                         "aligned base")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     fn = function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -95,7 +95,10 @@ def test_flash_kernel_reads_a_cache_slice_in_place(cuda):
     (1, 10, 1, 2048, 256),           # recurrentgemma: G 10, D 256
     (3, 20, 2, 300, 256),
     (2, 40, 8, 500, 128),            # llama4: G 5
-    (1, 36, 2, 100, 200),            # G 18 in three blocks, D 200
+    (1, 36, 2, 100, 200),            # G 18, D 200
+    (16, 10, 1, 256, 256),           # 5 heads a block (MAXG 8), D 256
+    (3, 24, 4, 300, 128),            # 3 heads a block (MAXG 4)
+    (4, 40, 8, 500, 128),            # llama4 at batch 4: 5 heads a block
 ])
 def test_decode_kernel_matches_plain(cuda, dtype, B, H, K, S, D):
     rng = np.random.default_rng(2)
@@ -125,6 +128,151 @@ def test_decode_kernel_valid_len_edges(cuda):
     mean_v = v[0].mean(0).repeat_interleave(H // K, dim=0)
     _close(out[0], mean_v, torch.float32)
     _close(out[1], v[1, 0].repeat_interleave(H // K, dim=0), torch.float32)
+
+
+# the bf16 flash kernel's tile edges: q tiles of 128 rows, kv tiles of 64,
+# boxes of 64 columns that TMA zero-fills past D
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,D,win,causal", [
+    (1, 4, 2, 129, 64, None, True),     # one row past a q tile
+    (2, 4, 4, 200, 128, None, True),    # a half-filled last q tile
+    (1, 2, 1, 1, 64, None, True),       # a single query row
+    (1, 4, 1, 300, 64, 64, True),       # window edge on a kv-tile boundary
+    (1, 2, 2, 256, 128, 128, True),     # ... and on a q-tile boundary
+    (1, 2, 1, 333, 96, 65, True),       # window one past a tile
+    (1, 4, 2, 150, 8, None, True),      # D 8: one box, 56 zero columns
+    (1, 8, 8, 190, 96, 100, True),      # D 96: 64 + 32 zero-filled
+    (1, 4, 4, 130, 200, 64, True),      # D 200: four boxes, the last 8 wide
+    (2, 4, 2, 140, 64, None, False),    # no causal mask
+    (1, 5, 1, 260, 256, None, False),
+])
+def test_flash_kernel_tile_edges(cuda, dtype, B, H, K, Sq, D, win, causal):
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (B, Sq, H, D), dtype, cuda)
+    k = _randn(rng, (B, Sq, K, D), dtype, cuda)
+    v = _randn(rng, (B, Sq, K, D), dtype, cuda)
+    out = flash_attention(q, k, v, window=win, causal=causal)
+    ref = flash_attention_plain(*_f32(q, k, v), window=win, causal=causal)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_heads(cuda, dtype):
+    """q, k and v as views of one fused projection (row stride (H + 2K)·D,
+    not H·D) and k/v as a slice of a larger cache: the TMA maps take the
+    strides as they are."""
+    rng = np.random.default_rng(8)
+    B, S, H, K, D = 2, 150, 8, 2, 96
+    qkv = _randn(rng, (B, S, (H + 2 * K) * D), dtype, cuda)
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    k = qkv[..., H * D:(H + K) * D].unflatten(-1, (K, D))
+    v = qkv[..., (H + K) * D:].unflatten(-1, (K, D))
+    assert q.stride(1) == (H + 2 * K) * D
+    _close(flash_attention(q, k, v, window=70),
+           flash_attention_plain(*_f32(q, k, v), window=70), dtype)
+    kc = _randn(rng, (B, 512, 2 * K, D), dtype, cuda)[:, :S, 1:1 + K]
+    vc = _randn(rng, (B, 512, 2 * K, D), dtype, cuda)[:, :S, 1:1 + K]
+    _close(flash_attention(q, kc, vc), flash_attention_plain(
+        *_f32(q, kc, vc)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [0.3, -0.2])
+def test_flash_kernel_takes_any_scale(cuda, dtype, scale):
+    """The bf16 kernel folds a positive scale into its exp2 after the
+    max; another scale goes through the explicitly scaled path."""
+    rng = np.random.default_rng(13)
+    q = _randn(rng, (1, 200, 4, 64), dtype, cuda)
+    k = _randn(rng, (1, 200, 2, 64), dtype, cuda)
+    v = _randn(rng, (1, 200, 2, 64), dtype, cuda)
+    _close(flash_attention(q, k, v, scale=scale),
+           flash_attention_plain(*_f32(q, k, v), scale=scale), dtype)
+
+
+def test_flash_kernel_rejects_what_tma_cannot_read(cuda):
+    """bf16 goes through TMA: a stride that is not a multiple of 8
+    elements is refused before launch (f32 takes it)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 16, 4, 12), dtype=dtype, device=cuda)[..., :8]
+        assert q.stride(2) == 12
+        if dtype == torch.float32:
+            assert flash_attention(q, q, q).shape == (1, 16, 4, 8)
+        else:
+            with pytest.raises(ValueError):
+                flash_attention(q, q, q)
+
+
+def test_flash_kernel_repeats_bit_identically(cuda):
+    rng = np.random.default_rng(9)
+    q = _randn(rng, (1, 300, 10, 256), torch.bfloat16, cuda)
+    k = _randn(rng, (1, 300, 1, 256), torch.bfloat16, cuda)
+    v = _randn(rng, (1, 300, 1, 256), torch.bfloat16, cuda)
+    a = flash_attention(q, k, v, window=128)
+    b = flash_attention(q, k, v, window=128)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lens", [
+    # 2 splits of the rows: every valid_len from 0 to past S
+    (64, list(range(0, 66))),
+    # 8 splits: 0, 1, S and the lengths around each split boundary
+    (256, [0, 1, 2, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128,
+           129, 223, 224, 225, 255, 256]),
+])
+def test_decode_kernel_valid_len_at_split_boundaries(cuda, dtype, S, lens):
+    rng = np.random.default_rng(10)
+    B, H, K, D = len(lens), 4, 1, 64
+    q = _randn(rng, (B, H, D), dtype, cuda)
+    k = _randn(rng, (B, S, K, D), dtype, cuda)
+    v = _randn(rng, (B, S, K, D), dtype, cuda)
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    _close(decode_attention(q, k, v, vl),
+           decode_attention_plain(*_f32(q, k, v), vl), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,S,D", [
+    (32, 32, 1024, 96),              # phi3-mini
+    (10, 1, 2048, 256),              # recurrentgemma's ring
+    (40, 8, 1024, 128),              # llama4
+])
+def test_decode_kernel_mixed_batch(cuda, dtype, H, K, S, D):
+    """Rows of one batch end in different splits; rows past each one's
+    valid_len are never read (NaN there would show)."""
+    rng = np.random.default_rng(11)
+    lens = [S, 517, 64, 1]
+    q = _randn(rng, (4, H, D), dtype, cuda)
+    k = _randn(rng, (4, S, K, D), dtype, cuda)
+    v = _randn(rng, (4, S, K, D), dtype, cuda)
+    for i, n in enumerate(lens):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out = decode_attention(q, k, v, vl)
+    ref = decode_attention_plain(*_f32(q, k.nan_to_num(), v.nan_to_num()),
+                                 vl)
+    _close(out, ref, dtype)
+
+
+def test_decode_kernel_repeats_bit_identically(cuda):
+    """The splits merge in a fixed order: the same bits every launch, and
+    on two streams at once."""
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (1, 10, 256), torch.bfloat16, cuda)
+    k = _randn(rng, (1, 2048, 1, 256), torch.bfloat16, cuda)
+    v = _randn(rng, (1, 2048, 1, 256), torch.bfloat16, cuda)
+    vl = torch.tensor([1999], dtype=torch.int32, device=cuda)
+    first = decode_attention(q, k, v, vl)
+    assert torch.equal(first, decode_attention(q, k, v, vl))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append([decode_attention(q, k, v, vl) for _ in range(4)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for run in outs for o in run)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

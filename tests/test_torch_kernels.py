@@ -230,3 +230,137 @@ def test_wrappers_reject_mismatched_shapes():
         moe_gating(torch.zeros((4, 8)), top_k=1, capacity=0)
     with pytest.raises(ValueError):
         moe_gating(torch.zeros((4, 2, 8)), top_k=1, capacity=8)
+
+
+# ---------------------------------------------------------------------------
+# the numerical designs of the CUDA kernels, emulated in plain torch (the
+# kernels themselves run only on the card: tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+def _flash_tensor_core_emulation(q, k, v, *, window=None, split_p=True,
+                                 kv_tile=64):
+    """The bf16 flash kernel's arithmetic: bf16 Q·K products summed in f32,
+    logits in log2 units with the additive -1e30 masks, an online softmax
+    over kv tiles (exp2), P split into bf16 hi and lo parts (or rounded to
+    bf16 once) multiplied with bf16 V and summed in f32, normalised last.
+    q: (B, Sq, H, D), k/v: (B, Sk, K, D), bf16 values; returns f32."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    c = (1.0 / np.sqrt(D)) * np.log2(np.e)
+    qf = q.float().reshape(B, Sq, K, G, D)
+    kf, vf = k.float(), v.float()
+    neg = torch.tensor(-1e30)
+    m = torch.full((B, K, G, Sq), -1e30)
+    l = torch.zeros((B, K, G, Sq))
+    acc = torch.zeros((B, K, G, Sq, D))
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, kv_tile):
+        kt, vt = kf[:, k0:k0 + kv_tile], vf[:, k0:k0 + kv_tile]
+        k_pos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        x = torch.einsum("bqkgd,bskd->bkgqs", qf, kt) * c
+        x = x + neg * (q_pos < k_pos)
+        if window is not None:
+            x = x + neg * (q_pos - k_pos >= window)
+        mn = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(x - mn[..., None])
+        l = l * alpha + p.sum(-1)
+        if split_p:
+            hi = p.bfloat16().float()
+            lo = (p - hi).bfloat16().float()
+            pv = (torch.einsum("bkgqs,bskd->bkgqd", hi, vt)
+                  + torch.einsum("bkgqs,bskd->bkgqd", lo, vt))
+        else:
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(), vt)
+        acc = acc * alpha[..., None] + pv
+        m = mn
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+@pytest.mark.parametrize("B,H,K,S,D,win", [
+    (1, 4, 4, 150, 96, None),              # phi3-mini's head dim 96
+    (1, 4, 2, 200, 96, 70),                # a window across kv tiles
+    (1, 5, 1, 130, 128, None),             # llama4's D, G 5
+    (1, 2, 1, 260, 256, 64),               # recurrentgemma's D, window
+])
+def test_flash_tensor_core_design_holds_the_card_tolerance(B, H, K, S, D,
+                                                           win):
+    """Splitting P into bf16 hi + lo keeps the bf16 output within the card
+    check (2e-5 + 2^-8·|ref|) of the plain version, and the f32 result
+    within 2e-5 + 2e-5·|ref|; rounding P to bf16 once does not."""
+    rng = np.random.default_rng(20)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, n, D))
+                                .astype(np.float32)).bfloat16().float()
+               for n in (H, K, K))
+    ref = flash_attention_plain(q, k, v, window=win)
+    emu = _flash_tensor_core_emulation(q, k, v, window=win)
+    bound = 2e-5 + 2.0 ** -8 * ref.abs()
+    assert bool(((emu.bfloat16().float() - ref).abs() <= bound).all())
+    assert bool(((emu - ref).abs() <= 2e-5 + 2e-5 * ref.abs()).all())
+    once = _flash_tensor_core_emulation(q, k, v, window=win, split_p=False)
+    assert not bool(((once - ref).abs() <= 2e-5 + 2e-5 * ref.abs()).all())
+
+
+def _decode_split_emulation(q, k, v, valid_len, splits):
+    """The decode kernel's split-and-merge: each row's min(valid_len, S)
+    rows (S rows, logits 0, for valid_len 0) cut into `splits` even
+    chunks; a partial (m, l, acc) per chunk in f32, an empty chunk
+    (-1e30, 0, 0); the partials merged in split order."""
+    B, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / np.sqrt(D)
+    out = torch.empty((B, H, D))
+    for b in range(B):
+        vl = int(valid_len[b])
+        n = S if vl <= 0 else min(vl, S)
+        chunk = -(-n // splits)
+        qb = q[b].reshape(K, G, D)
+        parts = []
+        for sp in range(splits):
+            r0 = min(n, sp * chunk)
+            r1 = min(n, r0 + chunk)
+            if r0 == r1:
+                parts.append((torch.full((K, G), -1e30), torch.zeros((K, G)),
+                              torch.zeros((K, G, D))))
+                continue
+            s = torch.einsum("kgd,skd->kgs", qb, k[b, r0:r1]) * scale
+            if vl <= 0:
+                s = torch.zeros_like(s)
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m, p.sum(-1),
+                          torch.einsum("kgs,skd->kgd", p, v[b, r0:r1])))
+        mt = parts[0][0]
+        for m, _, _ in parts[1:]:
+            mt = torch.maximum(mt, m)
+        lt = torch.zeros((K, G))
+        at = torch.zeros((K, G, D))
+        for m, lp, ap in parts:
+            w = torch.exp(m - mt)
+            lt = lt + lp * w
+            at = at + ap * w[..., None]
+        out[b] = (at / torch.clamp(lt, min=1e-30)[..., None]).reshape(H, D)
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_decode_split_merge_design_equals_the_plain_version(splits):
+    """valid_len 0 (mean of V), 1, lengths at and around each split
+    boundary, S and past S; chunks past a row's length merge with weight
+    0."""
+    rng = np.random.default_rng(21)
+    S, H, K, D = 48, 6, 2, 32
+    lens = sorted({0, 1, 2, S - 1, S, S + 5}
+                  | {j * -(-n // splits) + e for n in (S, 17, 9)
+                     for j in range(1, splits) for e in (-1, 0, 1)})
+    lens = [n for n in lens if n >= 0]
+    B = len(lens)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, K, D))
+                             .astype(np.float32)) for _ in range(2))
+    vl = torch.tensor(lens, dtype=torch.int32)
+    torch.testing.assert_close(_decode_split_emulation(q, k, v, vl, splits),
+                               decode_attention_plain(q, k, v, vl),
+                               rtol=2e-5, atol=2e-5)
