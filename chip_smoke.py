@@ -10,7 +10,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    nvcc, one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version at the serving
    paths' shapes (phi3-mini, recurrentgemma-2b, llama4-maverick and
-   deepseek-v2's routing) — every element within the tolerance of the
+   deepseek-v2's routing), with the scan's and the gating's launch
+   shapes — every element within the tolerance of the
    plain version's f32 result (one bf16 rounding for a bf16 output; MoE
    gating's experts, slots and keep identical, gates within 1e-6), median
    time (CUDA events, L2 flushed before each launch), the plain version's
@@ -244,13 +245,17 @@ def _decode_cases(torch, dev, randn, flush) -> dict:
 
 
 def _rglru_cases(torch, dev, randn, flush) -> dict:
-    """recurrentgemma's prefill scan (B 1, d_rnn 2560, f32), a bf16 case
-    and a ragged batch.  No single PyTorch call computes the scan, so
-    library_ms is null."""
+    """recurrentgemma's prefill scan (B 1, d_rnn 2560, f32) at a short
+    prompt's 64 steps, 512 and 3000, a bf16 case and a ragged batch, each
+    with the launch shape the wrapper picks.  No single PyTorch call
+    computes the scan, so library_ms is null."""
     from repro_torch.kernels import rglru_scan, rglru_scan_plain
+    from repro_torch.kernels.rglru_scan.ops import scan_launch_shape
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chosen = {}
-    for B, S, dr, dt in [(1, 512, 2560, "float32"),
+    for B, S, dr, dt in [(1, 64, 2560, "float32"),
+                         (1, 512, 2560, "float32"),
                          (1, 3000, 2560, "float32"),
                          (1, 3000, 2560, "bfloat16"),
                          (4, 37, 2560, "float32")]:
@@ -271,9 +276,11 @@ def _rglru_cases(torch, dev, randn, flush) -> dict:
                "plain_ms": _median_ms(
                    torch, lambda: rglru_scan_plain(x, a, h0), flush, reps=5),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
-        print(f"  rglru_scan B={B} S={S} dr={dr} {dt}: {err} {ATOL} "
-              f"{RTOL[dt]} {row['ms']} {row['plain_ms']} None {bound} "
-              f"{bound_by}")
+        shape = scan_launch_shape(B, S, dr, dtype.itemsize, sms)
+        print(f"  rglru_scan B={B} S={S} dr={dr} {dt} (route {shape.route}, "
+              f"cb {shape.cb}, {shape.blocks} blocks, {shape.stages} stages "
+              f"of {shape.rows} steps): {err} {ATOL} {RTOL[dt]} {row['ms']} "
+              f"{row['plain_ms']} None {bound} {bound_by}")
         if (S, dt) == (3000, "float32"):
             chosen["rglru_scan"] = row
     return chosen
@@ -286,6 +293,8 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
     the plain version's; gates within 1e-6.  No single PyTorch call
     computes the routing, so library_ms is null."""
     from repro_torch.kernels import moe_gating, moe_gating_plain
+    from repro_torch.kernels.moe_gating.ops import (gating_launch_shape,
+                                                    max_cluster_blocks)
 
     chosen = {}
     for name, T, E, k, C, tied in [("llama4 decode", 1, 128, 1, 8, False),
@@ -315,9 +324,11 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
                "plain_ms": _median_ms(torch, lambda: moe_gating_plain(
                    logits, top_k=k, capacity=C), flush),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
-        print(f"  moe_gating {name} T={T} E={E} k={k} C={C}: eids/slots/keep "
-              f"identical, {dropped} dropped, gates err {err} (tol 1e-6) "
-              f"{row['ms']} {row['plain_ms']} None {bound} {bound_by}")
+        nb, threads = gating_launch_shape(T, max_cluster_blocks())
+        print(f"  moe_gating {name} T={T} E={E} k={k} C={C} ({nb} blocks of "
+              f"{threads} threads): eids/slots/keep identical, {dropped} "
+              f"dropped, gates err {err} (tol 1e-6) {row['ms']} "
+              f"{row['plain_ms']} None {bound} {bound_by}")
         if name == "llama4 prefill":
             chosen["moe_gating"] = row
     return chosen

@@ -7,18 +7,43 @@ computes :func:`moe_gating_plain` for a CPU tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .._build import function
 
-__all__ = ["moe_gating", "moe_gating_plain"]
+__all__ = ["gating_launch_shape", "max_cluster_blocks", "moe_gating",
+           "moe_gating_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 5 + [_I] * 4 + [_P]
+_ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
 #: what the kernel takes: experts (one warp's 8 registers per lane) and k
 MAX_EXPERTS, MAX_TOP_K = 256, 8
+#: warps per block
+MAX_WARPS = 32
+
+
+def gating_launch_shape(T: int, max_blocks: int) -> tuple[int, int]:
+    """(blocks of the cluster, threads per block) for ``T`` tokens, on a
+    card that places clusters of up to ``max_blocks`` blocks.
+
+    Up to 32 tokens: one block with a warp per token and no cluster.
+    Beyond: a block per 32 tokens, at most ``max_blocks``; each block owns
+    an even, contiguous share of the tokens and has a warp per token of
+    it, at most 32 (past max_blocks·32 tokens a warp routes several)."""
+    if T <= MAX_WARPS:
+        return 1, 32 * T
+    nb = min(max_blocks, -(-T // MAX_WARPS))
+    return nb, 32 * min(MAX_WARPS, -(-T // nb))
+
+
+@functools.lru_cache(maxsize=None)
+def max_cluster_blocks() -> int:
+    """The most blocks the kernel's cluster may have on the current card:
+    16 where it can place a non-portable cluster of 16, else 8."""
+    return function("moe_gating", "moe_gating_max_blocks", [])()
 
 
 def moe_gating_plain(logits: torch.Tensor, *, top_k: int, capacity: int):
@@ -77,10 +102,11 @@ def moe_gating(logits: torch.Tensor, *, top_k: int, capacity: int):
     gates = torch.empty((T, top_k), dtype=torch.float32, **kw)
     slots = torch.empty((T, top_k), dtype=torch.int32, **kw)
     keep = torch.empty((T, top_k), dtype=torch.bool, **kw)
+    nb, threads = gating_launch_shape(T, max_cluster_blocks())
     fn = function("moe_gating", "moe_gating_fwd", _ARGTYPES)
     err = fn(logits.data_ptr(), eids.data_ptr(), gates.data_ptr(),
-             slots.data_ptr(), keep.data_ptr(), T, E, top_k, capacity,
-             torch.cuda.current_stream(logits.device).cuda_stream)
+             slots.data_ptr(), keep.data_ptr(), T, E, top_k, capacity, nb,
+             threads, torch.cuda.current_stream(logits.device).cuda_stream)
     if err:
         raise RuntimeError(f"moe_gating kernel launch failed: error {err}")
     moe_gating.launches += 1

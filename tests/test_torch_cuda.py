@@ -15,6 +15,10 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain,  # no
                                  flash_attention, flash_attention_plain,
                                  moe_gating, moe_gating_plain, rglru_scan,
                                  rglru_scan_plain)
+from repro_torch.kernels.moe_gating.ops import (  # noqa: E402
+    gating_launch_shape, max_cluster_blocks)
+from repro_torch.kernels.rglru_scan.ops import (TILE_ROWS,  # noqa: E402
+                                                scan_launch_shape)
 
 pytestmark = pytest.mark.cuda
 
@@ -320,6 +324,153 @@ def test_moe_gating_kernel_ties_take_the_lower_expert(cuda):
                           device=cuda)
     _gating_equal(moe_gating(logits, top_k=4, capacity=24),
                   moe_gating_plain(logits, top_k=4, capacity=24))
+
+
+# the scan's time tiles (TILE_ROWS steps) and its ring of stages
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,dr,route", [
+    (1, 1, 2560, "tma"),                     # one step
+    (1, TILE_ROWS - 1, 2560, "tma"),         # one tile, one short
+    (1, TILE_ROWS, 2560, "tma"),             # exactly one tile
+    (1, TILE_ROWS + 1, 2560, "tma"),         # a second tile of one step
+    (1, 12 * TILE_ROWS + 5, 2560, "tma"),    # 13 tiles: the ring wraps
+    (1, 3000, 2560, "tma"),                  # recurrentgemma's prefill
+    (1, 300, 2568, "tma"),                   # dr not a multiple of cb
+    (2, 77, 1004, "tma"),                    # ... at cb 16
+    (4, 300, 2560, "tma"),                   # blocks share SMs: 64 steps
+    (1, 200, 2561, "simt"),              # row stride not 16-byte aligned
+    (3, 50, 37, "simt"),
+])
+def test_rglru_scan_kernel_tile_edges(cuda, dtype, B, S, dr, route):
+    """Bit for bit the plain version (f32 exact, bf16 one rounding of the
+    same value) on both routes, at the tile and ring edges."""
+    shape = scan_launch_shape(B, S, dr, dtype.itemsize, _sms(cuda))
+    assert shape.route == ("tma" if dr * dtype.itemsize % 16 == 0
+                           else "simt")
+    assert dtype == torch.bfloat16 or shape.route == route
+    if S == 12 * TILE_ROWS + 5:
+        assert 13 >= 2 * shape.stages + 1
+    rng = np.random.default_rng(S + dr)
+    x = _randn(rng, (B, S, dr), dtype, cuda)
+    a = torch.sigmoid(_randn(rng, (B, S, dr), torch.float32, cuda)).to(dtype)
+    h0 = _randn(rng, (B, dr), torch.float32, cuda)
+    out = rglru_scan(x, a, h0)
+    torch.testing.assert_close(out, rglru_scan_plain(x, a, h0), rtol=0,
+                               atol=0)
+
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_takes_an_unaligned_base(cuda, dtype):
+    """x and a one element into their buffers: not 16-byte aligned, so
+    the thread-per-channel kernel reads them; the result is the same
+    bits."""
+    rng = np.random.default_rng(17)
+    B, S, dr = 2, 130, 256
+    n = B * S * dr
+    x = _randn(rng, (n + 1,), dtype, cuda)[1:].view(B, S, dr)
+    a = torch.sigmoid(_randn(rng, (n + 1,), torch.float32, cuda)).to(
+        dtype)[1:].view(B, S, dr)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    h0 = _randn(rng, (B, dr), torch.float32, cuda)
+    torch.testing.assert_close(rglru_scan(x, a, h0),
+                               rglru_scan_plain(x, a, h0), rtol=0, atol=0)
+
+
+def test_rglru_scan_kernel_repeats_bit_identically(cuda):
+    """The same bits every launch, and on two streams at once."""
+    rng = np.random.default_rng(18)
+    x = _randn(rng, (1, 1000, 2560), torch.bfloat16, cuda)
+    a = torch.sigmoid(_randn(rng, (1, 1000, 2560), torch.float32,
+                             cuda)).to(torch.bfloat16)
+    h0 = _randn(rng, (1, 2560), torch.float32, cuda)
+    first = rglru_scan(x, a, h0)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append([rglru_scan(x, a, h0) for _ in range(4)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, o) for run in outs for o in run)
+
+
+# the gating kernel's launch edges: one block up to 32 tokens, then a
+# cluster of up to 8 or 16 blocks of up to 32 warps (a warp per token up
+# to 256 or 512 tokens)
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 256, 257, 512, 513, 1023, 1024,
+                               1025])
+@pytest.mark.parametrize("E,k,C", [(128, 1, 8), (64, 3, 40)])
+def test_moe_gating_kernel_launch_edges(cuda, T, E, k, C):
+    rng = np.random.default_rng(T + E)
+    logits = _randn(rng, (T, E), torch.float32, cuda) * 3
+    _gating_equal(moe_gating(logits, top_k=k, capacity=C),
+                  moe_gating_plain(logits, top_k=k, capacity=C))
+
+
+def test_moe_gating_kernel_expert_spans_blocks(cuda):
+    """One expert wins tokens 50-400, over several blocks' ranges: its
+    positions run on across the blocks, and the capacity cuts it in a
+    block in the middle."""
+    T, E, k = 600, 32, 2
+    nb, _ = gating_launch_shape(T, max_cluster_blocks())
+    assert nb >= 8 and -(-T // nb) < 350
+    rng = np.random.default_rng(19)
+    logits = _randn(rng, (T, E), torch.float32, cuda)
+    logits[50:400, 3] += 10.0
+    for C in (40, 200, 400):
+        got = moe_gating(logits, top_k=k, capacity=C)
+        _gating_equal(got, moe_gating_plain(logits, top_k=k, capacity=C))
+    assert int(got[3][:, 0].sum()) == T    # C 400: every first entry kept
+
+
+@pytest.mark.parametrize("blocks_kept", [1, 2, 7])
+def test_moe_gating_kernel_capacity_on_a_block_boundary(cuda, blocks_kept):
+    """Every token routes to expert 0 first; C is a whole number of
+    blocks' tokens, so the last kept entry is a block's last."""
+    T, E, k = 512, 16, 1
+    nb, _ = gating_launch_shape(T, max_cluster_blocks())
+    Tb = -(-T // nb)
+    rng = np.random.default_rng(20)
+    logits = _randn(rng, (T, E), torch.float32, cuda)
+    logits[:, 0] += 20.0
+    C = blocks_kept * Tb
+    got = moe_gating(logits, top_k=k, capacity=C)
+    _gating_equal(got, moe_gating_plain(logits, top_k=k, capacity=C))
+    assert got[3][:, 0].tolist() == [t < C for t in range(T)]
+
+
+def test_moe_gating_kernel_ties_across_blocks(cuda):
+    """Logits of three values: ties everywhere, ranked over 8 or 16
+    blocks."""
+    rng = np.random.default_rng(21)
+    logits = torch.tensor(rng.integers(0, 3, (1500, 64)), dtype=torch.float32,
+                          device=cuda)
+    assert gating_launch_shape(1500, max_cluster_blocks())[0] >= 8
+    for k, C in ((4, 24), (8, 200)):
+        _gating_equal(moe_gating(logits, top_k=k, capacity=C),
+                      moe_gating_plain(logits, top_k=k, capacity=C))
+
+
+def test_moe_gating_kernel_repeats_bit_identically(cuda):
+    """The same bits every launch, and on two streams at once."""
+    rng = np.random.default_rng(22)
+    logits = _randn(rng, (4096, 160), torch.float32, cuda) * 3
+    first = moe_gating(logits, top_k=6, capacity=64)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append([moe_gating(logits, top_k=6, capacity=64)
+                         for _ in range(4)])
+    torch.cuda.synchronize()
+    for run in outs:
+        for got in run:
+            assert all(torch.equal(f, g) for f, g in zip(first, got))
 
 
 def _gating_equal(got, want):

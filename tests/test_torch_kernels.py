@@ -24,6 +24,8 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain,  # no
                                  flash_attention, flash_attention_plain,
                                  moe_gating, moe_gating_plain, rglru_scan,
                                  rglru_scan_plain)
+from repro_torch.kernels.moe_gating.ops import gating_launch_shape  # noqa: E402
+from repro_torch.kernels.rglru_scan.ops import scan_launch_shape  # noqa: E402
 
 #: as tests/test_kernels.py: f32 sums in another order; bf16 rounding
 TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -364,3 +366,138 @@ def test_decode_split_merge_design_equals_the_plain_version(splits):
     torch.testing.assert_close(_decode_split_emulation(q, k, v, vl, splits),
                                decode_attention_plain(q, k, v, vl),
                                rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the launch shapes the wrappers pick for csrc/rglru_scan.cu and
+# csrc/moe_gating.cu, and the gating kernel's split of the ranking over
+# the blocks of a cluster
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,S,dr,itemsize,sms", [
+    (1, 3000, 2560, 4, 132),                # recurrentgemma's long prefill
+    (1, 3000, 2560, 2, 132),
+    (1, 512, 2560, 4, 132),
+    (1, 64, 2560, 4, 132),                  # a short prompt: one tile
+    (4, 3000, 2560, 4, 132),                # 320 blocks, 3 an SM
+    (4, 37, 2560, 4, 132),
+    (1, 1, 96, 4, 132),                     # too few channels: cb 8
+    (1, 3000, 1024, 4, 132),                # cb 8 keeps half the SMs busy
+    (2, 1541, 2568, 2, 114),
+    (4, 3000, 2560, 2, 132),
+    (64, 3000, 2560, 4, 132),               # more blocks than fit at once
+])
+def test_scan_launch_shape_fills_the_card_and_fits(B, S, dr, itemsize, sms):
+    sh = scan_launch_shape(B, S, dr, itemsize, sms)
+    assert sh.route == "tma"
+    assert sh.cb in (8, 16, 32) and sh.cb * itemsize % 16 == 0
+    assert sh.blocks == B * -(-dr // sh.cb)
+    assert 2 * sh.blocks >= sms or sh.cb == 8     # half the SMs busy
+    assert sh.cb == 32 or 2 * B * -(-dr // (2 * sh.cb)) < sms   # widest
+    assert sh.rows == S or sh.rows in (128, 64, 32, 16)
+    assert sh.rows <= min(S, 128)
+    n_tiles = -(-S // sh.rows)
+    assert sh.stages == min(3, n_tiles)
+    slot = -(-sh.rows * sh.cb * itemsize // 128) * 128
+    per_block = (2 * 3 + 2) * slot + 128 + 256 + 1024
+    per_sm = -(-sh.blocks // sms)
+    assert per_block <= 227 * 1024
+    if sh.rows > 16:                      # every block resident at once
+        assert per_sm * per_block <= 228 * 1024
+        if sh.rows < min(S, 128):        # ... and the longest tile that is
+            wider = -(-2 * sh.rows * sh.cb * itemsize // 128) * 128
+            assert per_sm * ((2 * 3 + 2) * wider + 1408) > 228 * 1024
+    if (B, S, dr, itemsize) == (1, 3000, 2560, 4):
+        assert (sh.cb, sh.blocks, sh.rows, sh.stages) == (32, 80, 128, 3)
+
+
+@pytest.mark.parametrize("dr,itemsize,aligned,route", [
+    (2561, 4, True, "simt"),                # row stride 10244 B
+    (100, 2, True, "simt"),                 # 200 B
+    (37, 4, True, "simt"),
+    (2560, 4, False, "simt"),               # an unaligned base
+    (1004, 4, True, "tma"),
+    (1004, 2, True, "simt"),
+    (8, 2, True, "tma"),
+])
+def test_scan_launch_shape_routes_what_tma_cannot_read(dr, itemsize,
+                                                       aligned, route):
+    sh = scan_launch_shape(2, 300, dr, itemsize, 132, aligned=aligned)
+    assert sh.route == route
+    if route == "simt":
+        assert (sh.cb, sh.rows, sh.stages) == (0, 0, 0)
+        assert sh.blocks == 2 * -(-dr // 64)
+
+
+@pytest.mark.parametrize("max_blocks", [8, 16])
+@pytest.mark.parametrize("T", [1, 2, 31, 32, 33, 64, 100, 255, 256, 257,
+                               512, 513, 1023, 1024, 1025, 4096, 100000])
+def test_gating_launch_shape(T, max_blocks):
+    nb, threads = gating_launch_shape(T, max_blocks)
+    assert 1 <= nb <= max_blocks and threads % 32 == 0
+    assert 32 <= threads <= 1024
+    Tb = -(-T // nb)
+    if T <= 32:
+        assert (nb, threads) == (1, 32 * T)       # a warp per token
+    else:
+        assert nb == min(max_blocks, -(-T // 32))
+        assert threads // 32 == min(32, Tb)
+    assert all(r * Tb < T for r in range(nb))     # no block without tokens
+    if T <= max_blocks * 32:
+        assert threads // 32 >= Tb                # one token per warp
+
+
+def _gating_cluster_emulation(logits, k, C, nb, threads):
+    """The gating kernel's ranking: block r owns tokens [r·Tb, (r+1)·Tb);
+    each block counts its entries per expert; a block's offsets are the
+    counts of the lower-ranked blocks added in rank order; then it walks
+    its own entries in tiles of `threads`, an entry's position being the
+    offset plus the earlier entries of its expert in the block."""
+    T, E = logits.shape
+    eids, gates, _, _ = moe_gating_plain(logits, top_k=k, capacity=C)
+    Tb = -(-T // nb)
+    flat = eids.reshape(-1).tolist()
+    hists = []
+    for r in range(nb):
+        h = [0] * E
+        for e in flat[min(T, r * Tb) * k:min(T, (r + 1) * Tb) * k]:
+            h[e] += 1
+        hists.append(h)
+    slots, keep = [0] * len(flat), [False] * len(flat)
+    for r in range(nb):
+        running = [sum(hists[q][e] for q in range(r)) for e in range(E)]
+        n0, n1 = min(T, r * Tb) * k, min(T, (r + 1) * Tb) * k
+        for t0 in range(n0, n1, threads):
+            tile = flat[t0:min(n1, t0 + threads)]
+            for i, e in enumerate(tile):
+                pos = running[e] + tile[:i].count(e)
+                keep[t0 + i] = pos < C
+                slots[t0 + i] = e * C + (pos if pos < C else 0)
+            for e in tile:
+                running[e] += 1
+    return (eids, gates, torch.tensor(slots, dtype=torch.int32).reshape(T, k),
+            torch.tensor(keep).reshape(T, k))
+
+
+@pytest.mark.parametrize("max_blocks", [8, 16])
+@pytest.mark.parametrize("T,E,k,C,tied", [
+    (1, 128, 1, 8, False),                  # a decode step: one block
+    (33, 16, 2, 8, False),                  # two blocks
+    (512, 128, 1, 8, False),                # llama4's prefill
+    (600, 8, 2, 150, False),                # experts span every block
+    (512, 4, 1, 64, False),                 # C = whole blocks of tokens
+    (700, 16, 4, 24, True),                 # ties across blocks
+    (2500, 8, 2, 300, False),               # several tiles per block
+])
+def test_gating_cluster_ranking_equals_the_plain_version(T, E, k, C, tied,
+                                                         max_blocks):
+    rng = np.random.default_rng(T + E)
+    if tied:
+        logits = rng.integers(0, 3, (T, E)).astype(np.float32)
+    else:
+        logits = (rng.standard_normal((T, E)) * 3).astype(np.float32)
+    logits = torch.from_numpy(logits)
+    nb, threads = gating_launch_shape(T, max_blocks)
+    got = _gating_cluster_emulation(logits, k, C, nb, threads)
+    want = moe_gating_plain(logits, top_k=k, capacity=C)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
