@@ -19,13 +19,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the same inputs for the attention kernels (a yardstick only: the port
    never calls it; no single PyTorch call computes the scan or the
    routing) and the bound;
-4. small-input reference: reduced phi3-mini, recurrentgemma and llama4
-   served on the card and on the CPU (plain kernels) give the same greedy
-   tokens;
-5. serve, three paths, each through ``repro_torch.launch.serve.serve``
+4. small-input reference: reduced phi3-mini, recurrentgemma, llama4 and
+   xLSTM (the reference's canary stack of one mLSTM and one sLSTM block,
+   twice) served on the card and on the CPU (plain kernels) give the same
+   greedy tokens, and on the card the decode step replayed from its CUDA
+   graph gives the eager step's tokens and logits;
+5. serve, four paths, each through ``repro_torch.launch.serve.serve``
    and the Executor over ``cuda:0`` with random weights from seed 0, 4
-   slots and 16 new tokens per request, the launch counts zeroed before
-   and read after each:
+   slots and 16 new tokens per request, every decode step replayed from
+   its slot's CUDA graph, the launch counts zeroed before and read after
+   each (a decode step counts the engine's one eager warm-up step and
+   every replay, which adds the launches its graph holds):
    - phi3-mini-3.8b, full width and depth: 6 requests of 64-512 prompt
      tokens, max_seq 1024; flash = 32 × prefills, decode = 32 × decode
      steps;
@@ -35,11 +39,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
      = 8 × prefills, decode = 8 × decode steps;
    - llama4-maverick-400b-a17b at full width cut to 1 layer of 48 (bf16
      weights), the 6 requests, max_seq 1024; moe_gating = prefills +
-     decode steps, flash = prefills, decode = decode steps.
+     decode steps, flash = prefills, decode = decode steps;
+   - xlstm-1.3b, full width and depth (48 blocks, f32), the 6 requests,
+     max_seq 1024; no kernel (the reference has none for xLSTM).
    Every request completes with 16 tokens, a repeated prompt gets the
-   same tokens, and a direct prefill and decode step give finite logits
-   of the vocabulary's width.  Each path frees its weights before the
-   next.
+   same tokens, every decode step was a replay, and a direct prefill and
+   decode step give finite logits of the vocabulary's width.  After it,
+   one decode step from the same cache state, eager and replayed: their
+   logits agree, and each step's time split (eager: host enqueue, enqueue
+   plus device and the bytes bound; graphed: the replay's enqueue and
+   enqueue plus device).  Each path frees its weights before the next.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -72,6 +81,7 @@ RTOL = {"float32": 2e-5, "bfloat16": 2.0 ** -8}
 PHI3 = "phi3-mini-3.8b"
 RG = "recurrentgemma-2b"
 LLAMA4 = "llama4-maverick-400b-a17b"
+XLSTM = "xlstm-1.3b"
 
 
 def _median_ms(torch, fn, flush, reps: int = 15) -> float:
@@ -335,17 +345,25 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
 
 
 def reference_phase(torch, dev) -> None:
-    """Reduced phi3-mini, recurrentgemma and llama4 (f32 compute) on the
-    card with the kernels and on the CPU with their plain versions: the
-    same greedy tokens."""
+    """Reduced phi3-mini, recurrentgemma, llama4 and xLSTM (f32 compute)
+    on the card with the kernels and on the CPU with their plain
+    versions: the same greedy tokens.  xLSTM runs the reference's canary
+    stack (one mLSTM and one sLSTM block, twice): its reduced 16-block
+    stack turns a last-bit difference into logit differences past a
+    greedy margin.  On the card, a decode step replayed from its CUDA
+    graph gives the eager step's tokens and logits bit for bit."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import LayerGroup
     from repro_torch.models import (cast_params, decode_step, init_cache,
-                                    init_params, prefill)
+                                    init_params, prefill, reset_cache)
+    from repro_torch.serving.graphs import DecodeGraphs
 
     cpu = torch.device("cpu")
-    for arch in (PHI3, RG, LLAMA4):
+    canary = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
+    for arch in (PHI3, RG, LLAMA4, XLSTM):
+        kw = {"groups": canary} if arch == XLSTM else {}
         cfg = dataclasses.replace(reduced(get_config(arch)),
-                                  compute_dtype="float32")
+                                  compute_dtype="float32", **kw)
         params = init_params(cfg, torch.Generator().manual_seed(0), cpu)
         prompt = torch.arange(3, 40) % cfg.vocab_size
         runs = {}
@@ -367,6 +385,22 @@ def reference_phase(torch, dev) -> None:
         if ct != gt or err > 1e-3:
             raise AssertionError(f"{arch}: the card's tokens differ from the "
                                  f"CPU's")
+        # the same steps replayed from a CUDA graph over the slot's cache
+        caches = init_cache(cfg, 1, 64, device=dev)
+        graphs = DecodeGraphs(cfg, p, [caches], dev)
+        reset_cache(cfg, caches)
+        logits, caches = prefill(cfg, p, prompt[None].to(dev), caches)
+        toks, all_logits = [int(logits[0].argmax())], [logits.cpu()]
+        for n in range(8):
+            logits = graphs.step(0, toks[-1], len(prompt) + n)
+            toks.append(int(logits[0].argmax()))
+            all_logits.append(logits.cpu())
+        diff = float((torch.cat(all_logits) - gl).abs().max())
+        print(f"  graphed decode on the card: tokens {toks}; max logit diff "
+              f"to the eager steps {diff}")
+        if toks != gt or diff != 0.0:
+            raise AssertionError(f"{arch}: the graphed decode steps differ "
+                                 f"from the eager ones")
 
 
 def _to(torch, tree, device):
@@ -394,18 +428,20 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     """Serve ``cfg`` (full width, random weights from seed 0) through
     ``serve()`` and the Executor over ``dev``: prompts of ``lengths``
     tokens (the sixth gets the first one's prompt), 16 new tokens each, 4
-    slots.  Every request completes, the repeated
-    prompt gets the same tokens, and a direct prefill (of request
-    ``long_prompt``, default the second) and decode step give finite
-    logits of the vocabulary's width, the prefill's token the engine's.
-    Returns the kernels' launch counts of the serving run, its prefills
-    and its decode steps."""
+    slots.  Every request completes, the repeated prompt gets the same
+    tokens, every decode step is a graph replay, and a direct prefill (of
+    request ``long_prompt``, default the second) and decode step give
+    finite logits of the vocabulary's width, the prefill's token the
+    engine's.  Returns the kernels' launch counts of the serving run, its
+    prefills and its decode steps (the replays and the engine's warm-up
+    step)."""
     import numpy as np
 
     from repro_torch import kernels
     from repro_torch.launch.serve import serve
     from repro_torch.models import (decode_step, init_cache, init_params,
-                                    prefill)
+                                    prefill, reset_cache)
+    from repro_torch.serving.graphs import DecodeGraphs
 
     max_new = 16
     torch.cuda.reset_peak_memory_stats(dev)
@@ -424,6 +460,7 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     counts = {name: getattr(kernels, name).launches for name in COUNTED}
 
     stats = eng.stats()
+    graphs = eng.decode_graphs
     tokens = sum(len(r.generated) for r in done)
     print(f"serve {cfg.arch_id} full width ({cfg.n_layers} layers, "
           f"{cfg.param_dtype} weights drawn in {init_s} s): {len(done)} "
@@ -432,6 +469,10 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
           f"{stats['ttft_p99_s']} s; itl p50 {stats['itl_p50_s']} p99 "
           f"{stats['itl_p99_s']} s; preemptions {stats['preemptions']}; "
           f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
+    print(f"decode graphs: {len(graphs.slots)} captured in "
+          f"{graphs.capture_seconds} s (warm-up step included, before the "
+          f"clock), {graphs.replays} replays; launches per replay "
+          f"{graphs.slots[0].launches}")
     by_id = sorted(done, key=lambda r: r.id)
     if len(done) != len(prompts) or any(len(r.generated) != max_new
                                         for r in done):
@@ -443,11 +484,18 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     if stats["preemptions"]:
         raise AssertionError("a request was preempted: the launch counts "
                              "below assume one prefill per request")
+    steps = len(done) * (max_new - 1)
+    if graphs.replays != steps:
+        raise AssertionError(f"{graphs.replays} replays for {steps} decode "
+                             f"steps")
 
     p = eng.params
-    del eng
+    del eng, graphs
+    gc.collect()
     i = 1 if long_prompt is None else long_prompt
     caches = init_cache(cfg, 1, max_seq, device=dev)
+    graphs = DecodeGraphs(cfg, p, [caches], dev)
+    reset_cache(cfg, caches)
     prompt = torch.as_tensor(prompts[i][None], dtype=torch.long, device=dev)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -455,16 +503,35 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     torch.cuda.synchronize(dev)
     print(f"direct prefill of {prompt.shape[1]} tokens (warm): "
           f"{time.perf_counter() - t0} s")
-    logits2, caches = decode_step(cfg, p, logits.argmax(-1), caches)
-    for name, lg in (("prefill", logits), ("decode", logits2)):
+    # one step from the same cache state, eager on a copy and replayed
+    eager = _clone(torch, caches)
+    tok = int(logits[0].argmax())
+    logits2, eager = decode_step(cfg, p, torch.tensor([tok], device=dev),
+                                 eager)
+    replayed = graphs.step(0, tok, prompt.shape[1]).clone()
+    for name, lg in (("prefill", logits), ("decode", logits2),
+                     ("graphed decode", replayed)):
         if tuple(lg.shape) != (1, cfg.vocab_size) \
                 or not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"{name} logits: shape {tuple(lg.shape)}, "
                                  f"finite {bool(torch.isfinite(lg).all())}")
-    if int(logits[0].argmax()) != by_id[i].generated[0]:
+    if tok != by_id[i].generated[0]:
         raise AssertionError("a direct prefill disagrees with the engine")
-    _decode_step_split(torch, cfg, p, logits2.argmax(-1), caches, dev)
-    return counts, len(done), len(done) * (max_new - 1)
+    err = float((replayed - logits2).abs().max())
+    print(f"graphed against eager decode step, full width: max logit diff "
+          f"{err} (bit-identical: {err == 0.0})")
+    _check(torch, "graphed decode step", replayed, logits2, "float32")
+    _decode_step_split(torch, cfg, p, int(logits2[0].argmax()), eager,
+                       graphs, prompt.shape[1] + 1, dev)
+    return counts, len(done), steps + DecodeGraphs.warmup_steps
+
+
+def _clone(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _clone(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(torch, v) for v in tree]
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _check_counts(counts: dict, want: dict) -> None:
@@ -475,40 +542,55 @@ def _check_counts(counts: dict, want: dict) -> None:
                              "through its kernels")
 
 
-def _decode_step_split(torch, cfg, params, tok, caches, dev) -> None:
-    """Where one batch-1 decode step's time goes: the host's enqueue of
-    its ops against enqueue plus the device finishing, beside the bytes
-    bound of the step (every matmul weight, the cache rows in use and the
-    recurrent states read once)."""
+def _decode_step_split(torch, cfg, params, tok, caches, graphs, pos,
+                       dev) -> None:
+    """Where one batch-1 decode step's time goes, eager and replayed from
+    its graph: the host's enqueue against enqueue plus the device
+    finishing, beside the bytes bound of the step (every matmul weight,
+    the cache rows in use and the recurrent states read once).  The
+    eager steps run on ``caches``, the replays on the graph's own caches,
+    both from the position ``pos`` on."""
     from repro_torch.models import decode_step
-    from repro_torch.models.transformer import _cache_length
 
-    enqueue, total = [], []
-    for _ in range(10):
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        logits, caches = decode_step(cfg, params, tok, caches)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize(dev)
-        enqueue.append((t1 - t0) * 1e3)
-        total.append((time.perf_counter() - t0) * 1e3)
-        tok = logits.argmax(-1)
-    weights = _tree_bytes(params["groups"]) + _tree_bytes(params["lm_head"])
-    length = _cache_length(caches)
-    state = 0
+    def split(step):
+        enqueue, total = [], []
+        for n in range(10):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            step(n)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize(dev)
+            enqueue.append((t1 - t0) * 1e3)
+            total.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(enqueue), statistics.median(total)
+
+    state = {"caches": caches}
+
+    def eager(n):
+        _, state["caches"] = decode_step(
+            cfg, params, torch.tensor([tok], device=dev), state["caches"])
+
+    eager_split = split(eager)
+    graphed_split = split(lambda n: graphs.step(0, tok, pos + n))
+    weights = _tree_bytes(params["groups"]) + _tree_bytes(
+        params.get("lm_head", params["embed"]))
+    length = pos + 10
+    state_bytes = 0
     for group in caches:
         for sub in group.values():
             if "k" in sub:       # (count, B, W, K, hd): the rows in use
                 k = sub["k"]
                 rows = min(length, k.shape[2])
-                state += 2 * k.shape[0] * rows * k[0, 0, 0].numel() \
+                state_bytes += 2 * k.shape[0] * rows * k[0, 0, 0].numel() \
                     * k.element_size()
             else:
-                state += _tree_bytes(sub)
-    bound = (weights + state) / HBM_BYTES_S * 1e3
-    print(f"decode step, batch 1, cache length {length}: host enqueue "
-          f"median {statistics.median(enqueue)} ms, enqueue + device "
-          f"median {statistics.median(total)} ms, bytes bound {bound} ms")
+                state_bytes += _tree_bytes(sub)
+    bound = (weights + state_bytes) / HBM_BYTES_S * 1e3
+    print(f"decode step, batch 1, cache length {length}: eager host enqueue "
+          f"median {eager_split[0]} ms, enqueue + device median "
+          f"{eager_split[1]} ms, bytes bound {bound} ms; graphed replay "
+          f"enqueue median {graphed_split[0]} ms, enqueue + device median "
+          f"{graphed_split[1]} ms")
 
 
 def main() -> int:
@@ -576,6 +658,10 @@ def main() -> int:
     path(LLAMA4, llama4, [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": p, "decode_attention": s,
                        "rglru_scan": 0, "moe_gating": p + s})
+    # xlstm-1.3b: 42 mLSTM and 6 sLSTM blocks, f32, no kernel
+    path(XLSTM, get_config(XLSTM), [64, 512, 300, 137, 450, 64], 1024,
+         lambda p, s: {"flash_attention": 0, "decode_attention": 0,
+                       "rglru_scan": 0, "moe_gating": 0})
 
     for name, row in chosen.items():
         row["launches"] = sum(launches[name].values())

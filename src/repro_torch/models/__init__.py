@@ -1,7 +1,7 @@
-"""Model substrate: config-driven decoder (attention, RG-LRU and MoE
-blocks) with the hand-written kernels, and the weight conversion from the
-JAX reference."""
-from . import convert, layers, moe, recurrent, transformer
+"""Model substrate: config-driven decoder (attention, RG-LRU, MoE and
+xLSTM blocks) with the hand-written kernels, and the weight conversion
+from the JAX reference."""
+from . import convert, layers, moe, recurrent, transformer, xlstm
 from .convert import params_from_numpy
 from .transformer import (
     cast_params,
@@ -10,9 +10,11 @@ from .transformer import (
     init_cache,
     init_params,
     prefill,
+    reset_cache,
 )
 
 __all__ = [
-    "convert", "layers", "moe", "recurrent", "transformer", "params_from_numpy", "cast_params",
-    "decode_step", "forward", "init_cache", "init_params", "prefill",
+    "convert", "layers", "moe", "recurrent", "transformer", "xlstm",
+    "params_from_numpy", "cast_params", "decode_step", "forward",
+    "init_cache", "init_params", "prefill", "reset_cache",
 ]

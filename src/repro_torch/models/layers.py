@@ -25,12 +25,17 @@ Params = dict[str, Any]
 # initializers / norms
 # ---------------------------------------------------------------------------
 def dense_init(gen: torch.Generator, shape, dtype, device,
-               scale: float | None = None) -> torch.Tensor:
-    """Normal weights scaled by 1/sqrt(fan_in); a leading stack axis
-    (``(count, in, out)``) keeps the per-layer fan-in."""
-    fan_in = shape[-2] if len(shape) >= 2 else 1
-    s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+               scale: float | None = None,
+               count: int | None = None) -> torch.Tensor:
+    """Normal weights of the per-layer ``shape``, drawn as ``(count,
+    *shape)`` when ``count`` stacks them over layers.  Scaled by
+    ``scale``, default 1/sqrt(``shape[0]``): the reference's rule
+    (``repro.models.layers.dense_init``), the fan-in of a 2-d weight and
+    the leading expert or block count of a 3-d one."""
+    s = scale if scale is not None else 1.0 / math.sqrt(
+        shape[0] if len(shape) >= 2 else 1)
+    full = tuple(shape) if count is None else (count, *shape)
+    w = torch.randn(full, generator=gen, device=device, dtype=torch.float32)
     return (w * s).to(dtype)
 
 
@@ -73,17 +78,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
-def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-              window: int | None = None, scale: float | None = None,
+def attention(q, k, v, *, causal: bool = True, window: int | None = None,
+              scale: float | None = None,
               valid_len: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped-query attention.  q: (B, Sq, H, D); k, v: (B, Sk, K, D).
 
     One query token (decode) goes to the decode-attention kernel: rows
-    below ``valid_len`` (default ``q_offset + 1`` — the reference's
-    ``kpos <= q_offset`` mask) are attended.  A prompt at ``q_offset``
-    0 goes to the flash-attention kernel (top-left causal, optional
-    ``window``).  A prompt at a later offset (chunked prefill) and
-    windowed decode on a cache that is not a ring are not ported yet.
+    below ``valid_len`` are attended (default 1: a lone token without a
+    cache sees itself).  A prompt goes to the flash-attention kernel
+    (top-left causal, optional ``window``).  Windowed decode on a cache
+    that is not a ring is not ported yet; a prompt at a cache offset
+    (chunked prefill) raises in :func:`attn_forward`.
     """
     B, Sq, H, D = q.shape
     if Sq == 1:
@@ -92,14 +97,9 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                 "windowed decode on a non-ring cache is not ported yet; "
                 "local attention decodes over a ring cache (valid_len)")
         if valid_len is None:
-            valid_len = torch.full((B,), q_offset + 1, dtype=torch.int32,
-                                   device=q.device)
+            valid_len = torch.ones((B,), dtype=torch.int32, device=q.device)
         out = decode_attention(q[:, 0], k, v, valid_len, scale=scale)
         return out[:, None]
-    if q_offset != 0:
-        raise NotImplementedError(
-            "chunked prefill (a prompt at cache offset > 0) is not ported "
-            "yet; see ROADMAP.md")
     return flash_attention(q, k, v, causal=causal, window=window,
                            scale=scale)
 
@@ -113,25 +113,27 @@ def init_attn(cfg, gen: torch.Generator, device, count: int = 1,
     H, K = cfg.n_heads, cfg.n_kv_heads
     dt = getattr(torch, cfg.param_dtype)
     return {
-        "wq": dense_init(gen, (count, d, H * hd), dt, device),
-        "wk": dense_init(gen, (count, d, K * hd), dt, device),
-        "wv": dense_init(gen, (count, d, K * hd), dt, device),
-        "wo": dense_init(gen, (count, H * hd, d), dt, device),
+        "wq": dense_init(gen, (d, H * hd), dt, device, count=count),
+        "wk": dense_init(gen, (d, K * hd), dt, device, count=count),
+        "wv": dense_init(gen, (d, K * hd), dt, device, count=count),
+        "wo": dense_init(gen, (H * hd, d), dt, device, count=count),
     }
 
 
 def attn_forward(cfg, p: Params, x, positions, cache=None, *,
-                 local: bool = False, valid_len=None):
+                 local: bool = False, step=None):
     """x: (B, S, d).  cache: dict(k, v, length) of one layer, or None.
 
     Returns (out, new_cache).  KV cache layout: (B, S_max, K, hd); the
     new k/v rows are written into the cache tensors IN PLACE (no copy of
     the cache per token), and ``length`` is a host int counting every
-    token seen.  ``valid_len`` may carry the decode mask's device tensor,
-    made once per step.  ``local``: sliding-window attention over
-    ``cfg.rec.local_window``; its cache of W <= window rows is a ring
-    holding the last W tokens (post-RoPE keys, so the rotation survives
-    the wrap), as the reference's (``layers.py`` ring branch).
+    token seen.  A decode step (S = 1 with a cache) takes ``step``, its
+    cache row and ``valid_len`` as device tensors made once per step
+    (``transformer._decode_steps``), so it reads no host scalar.
+    ``local``: sliding-window attention over ``cfg.rec.local_window``;
+    its cache of W <= window rows is a ring holding the last W tokens
+    (post-RoPE keys, so the rotation survives the wrap), as the
+    reference's (``layers.py`` ring branch).
     """
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -142,71 +144,57 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
     q = apply_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
     window = cfg.rec.local_window if local else None
-    if cache is not None and local:
-        out, new_cache = _ring_attention(q, k, v, cache, window, valid_len,
-                                         cdt)
-    elif cache is not None:
+    new_cache = None
+    if cache is None:
+        out = attention(q, k, v, causal=True, window=window)
+    else:
         length = cache["length"]
         k_cache, v_cache = cache["k"], cache["v"]
-        k_cache[:, length:length + S] = k.to(k_cache.dtype)
-        v_cache[:, length:length + S] = v.to(v_cache.dtype)
+        if local and k_cache.shape[1] > window:
+            raise NotImplementedError(
+                "a local-attention cache longer than its window is not "
+                "ported; init_cache builds W = min(max_len, local_window)")
         if S == 1:
-            # decode: rows 0..length, read from the cache as the
-            # reference reads it (cast to the compute dtype)
+            # decode: write row pos % W, attend to the valid rows, read
+            # from the cache as the reference reads it (in the compute
+            # dtype); a ring holds exactly the past window, so validity
+            # is the whole mask
+            row, valid_len = step
+            k_cache.index_copy_(1, row, k.to(k_cache.dtype))
+            v_cache.index_copy_(1, row, v.to(v_cache.dtype))
             out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
-                            q_offset=length, valid_len=valid_len)
+                            valid_len=valid_len)
+        elif length != 0:
+            raise NotImplementedError(
+                "chunked prefill (a prompt at cache offset > 0) is not "
+                "ported yet; see ROADMAP.md")
+        elif local:
+            out = attention(q, k, v, causal=True, window=window)
+            _ring_fill(k_cache, v_cache, k, v)
         else:
-            # a fresh prefill attends to its own rows of the cache: with
-            # offset 0 the causal mask hides every row >= S
+            k_cache[:, :S] = k.to(k_cache.dtype)
+            v_cache[:, :S] = v.to(v_cache.dtype)
+            # a fresh prefill attends to its own rows of the cache, as
+            # the reference reads them back
             out = attention(q, k_cache[:, :S].to(cdt),
-                            v_cache[:, :S].to(cdt), q_offset=length)
+                            v_cache[:, :S].to(cdt))
         new_cache = {"k": k_cache, "v": v_cache, "length": length + S}
-    else:
-        out = attention(q, k, v, causal=True, window=window)
-        new_cache = None
     out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
     return out, new_cache
 
 
-def _ring_attention(q, k, v, cache, window: int, valid_len, cdt):
-    """Local attention against a ring cache of W rows (W <= window).
-
-    Decode writes row ``length % W`` and attends to the ``min(length + 1,
-    W)`` valid rows: the ring holds exactly the past window, so validity
-    is the whole mask.  A fresh prefill attends to its own k/v with the
-    window and then writes its last ``min(S, W)`` rows at their ring
-    slots ``(S - tail .. S - 1) % W``, a rotation done as two slices."""
-    B, S = q.shape[:2]
-    length = cache["length"]
-    k_cache, v_cache = cache["k"], cache["v"]
-    W = k_cache.shape[1]
-    if W > window:
-        raise NotImplementedError(
-            "a local-attention cache longer than its window is not ported; "
-            "init_cache builds W = min(max_len, local_window)")
-    if S == 1:
-        slot = length % W
-        k_cache[:, slot:slot + 1] = k.to(k_cache.dtype)
-        v_cache[:, slot:slot + 1] = v.to(v_cache.dtype)
-        if valid_len is None:
-            valid_len = torch.full((B,), min(length + 1, W),
-                                   dtype=torch.int32, device=q.device)
-        out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
-                        valid_len=valid_len)
-    else:
-        if length != 0:
-            raise NotImplementedError(
-                "chunked prefill (a prompt at cache offset > 0) is not "
-                "ported yet; see ROADMAP.md")
-        out = attention(q, k, v, causal=True, window=window)
-        tail = min(S, W)
-        start = (S - tail) % W
-        first = min(tail, W - start)
-        for cache_t, new in ((k_cache, k), (v_cache, v)):
-            new = new[:, S - tail:].to(cache_t.dtype)
-            cache_t[:, start:start + first] = new[:, :first]
-            cache_t[:, :tail - first] = new[:, first:]
-    return out, {"k": k_cache, "v": v_cache, "length": length + S}
+def _ring_fill(k_cache, v_cache, k, v) -> None:
+    """A fresh prefill's last min(S, W) k/v rows into a ring of W rows, at
+    their slots ``(S - tail .. S - 1) % W``: a rotation done as two
+    slices."""
+    S, W = k.shape[1], k_cache.shape[1]
+    tail = min(S, W)
+    start = (S - tail) % W
+    first = min(tail, W - start)
+    for cache_t, new in ((k_cache, k), (v_cache, v)):
+        new = new[:, S - tail:].to(cache_t.dtype)
+        cache_t[:, start:start + first] = new[:, :first]
+        cache_t[:, :tail - first] = new[:, first:]
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, dtype, device,
@@ -230,9 +218,9 @@ def init_ffn(cfg, gen: torch.Generator, device, count: int = 1,
     f = d_ff or cfg.d_ff
     dt = getattr(torch, cfg.param_dtype)
     return {
-        "w_gate": dense_init(gen, (count, d, f), dt, device),
-        "w_up": dense_init(gen, (count, d, f), dt, device),
-        "w_down": dense_init(gen, (count, f, d), dt, device),
+        "w_gate": dense_init(gen, (d, f), dt, device, count=count),
+        "w_up": dense_init(gen, (d, f), dt, device, count=count),
+        "w_down": dense_init(gen, (f, d), dt, device, count=count),
     }
 
 

@@ -14,6 +14,8 @@ distributed slice.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -30,12 +32,13 @@ _EXPERTS_PER_DRAW = 8
 def _init_experts(gen, count: int, E: int, d_in: int, d_out: int, dtype,
                   device) -> torch.Tensor:
     """(count, E, d_in, d_out) expert weights in ``dtype``, drawn a few
-    experts at a time."""
+    experts at a time, each draw scaled as the whole (E, d_in, d_out)
+    weight: by 1/sqrt(E), the reference's rule for its first axis."""
     w = torch.empty((count, E, d_in, d_out), dtype=dtype, device=device)
     for e0 in range(0, E, _EXPERTS_PER_DRAW):
         e1 = min(E, e0 + _EXPERTS_PER_DRAW)
-        w[:, e0:e1] = dense_init(gen, (count, e1 - e0, d_in, d_out), dtype,
-                                 device)
+        w[:, e0:e1] = dense_init(gen, (e1 - e0, d_in, d_out), dtype, device,
+                                 scale=1.0 / math.sqrt(E), count=count)
     return w
 
 
@@ -45,8 +48,8 @@ def init_moe(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
     d = cfg.d_model
     dt = getattr(torch, cfg.param_dtype)
     p = {
-        "router": dense_init(gen, (count, d, m.n_experts), dt, device,
-                             scale=0.02),
+        "router": dense_init(gen, (d, m.n_experts), dt, device,
+                             scale=0.02, count=count),
         "experts": {
             name: _init_experts(gen, count, m.n_experts, a, b, dt, device)
             for name, a, b in (("w_gate", d, m.d_ff_expert),
@@ -65,22 +68,19 @@ def _capacity(cfg, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)   # round up to 8, as the reference
 
 
-def _group_dispatch(cfg, router_w, xg, cdt):
+def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False):
     """Route one token group.  xg: (Tg, d); router_w: f32 (d, E).
 
     Returns (buf (E, C, d), slot, keep, gate, aux), the entries in
-    flattened (token, k) order."""
+    flattened (token, k) order; the load-balance ``aux`` is None unless
+    asked for."""
     m = cfg.moe
     Tg, d = xg.shape
     C = _capacity(cfg, Tg)
     logits = xg.float() @ router_w
     eids, gates, slots, keep = moe_gating(logits, top_k=m.top_k, capacity=C)
 
-    # load-balance auxiliary loss (Switch eq. 4), from the same logits
-    probs = torch.softmax(logits, dim=-1)
-    density = F.one_hot(eids[:, 0].long(), m.n_experts).float().mean(0)
-    aux = m.aux_loss_coef * m.n_experts * torch.sum(density * probs.mean(0))
-
+    aux = _load_balance_aux(cfg, logits, eids) if aux else None
     slot = slots.reshape(-1).long()
     keep = keep.reshape(-1)
     src = torch.arange(Tg, device=xg.device).repeat_interleave(m.top_k)
@@ -92,6 +92,17 @@ def _group_dispatch(cfg, router_w, xg, cdt):
             gates.reshape(-1).to(cdt), aux)
 
 
+def _load_balance_aux(cfg, logits, eids):
+    """The load-balance auxiliary loss (Switch eq. 4), from the router's
+    logits and first choices.  Serving never reads it: under ``jax.jit``
+    the reference's unused aux is dropped by XLA, so the port computes it
+    only when asked (training)."""
+    m = cfg.moe
+    probs = torch.softmax(logits, dim=-1)
+    density = F.one_hot(eids[:, 0].long(), m.n_experts).float().mean(0)
+    return m.aux_loss_coef * m.n_experts * torch.sum(density * probs.mean(0))
+
+
 def _group_combine(ex_out_g, slot, keep, gate, Tg, k, d):
     """ex_out_g: (E·C, d) → (Tg, d): each token's k gated expert rows
     summed (a dropped entry adds zero)."""
@@ -99,14 +110,15 @@ def _group_combine(ex_out_g, slot, keep, gate, Tg, k, d):
     return contrib.reshape(Tg, k, d).sum(1)
 
 
-def _moe_local(cfg, p: Params, x, cdt):
-    """Single-device path.  x: (B, S, d) → (B, S, d), aux."""
+def _moe_local(cfg, p: Params, x, cdt, aux: bool = False):
+    """Single-device path.  x: (B, S, d) → (B, S, d), aux (None unless
+    asked for)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     buf, slot, keep, gate, aux = _group_dispatch(
-        cfg, p["router"].float(), xt, cdt)
+        cfg, p["router"].float(), xt, cdt, aux)
     w = p["experts"]
     gg = F.silu(torch.bmm(buf, w["w_gate"].to(cdt)))
     uu = torch.bmm(buf, w["w_up"].to(cdt))
@@ -116,10 +128,11 @@ def _moe_local(cfg, p: Params, x, cdt):
     return out.reshape(B, S, d), aux
 
 
-def moe_forward(cfg, p: Params, x):
-    """x: (B, S, d) → (B, S, d), aux_loss."""
+def moe_forward(cfg, p: Params, x, *, aux: bool = False):
+    """x: (B, S, d) → (B, S, d), aux_loss: the load-balance loss when
+    ``aux``, else None (nothing on the serving path reads it)."""
     cdt = getattr(torch, cfg.compute_dtype)
-    out, aux = _moe_local(cfg, p, x, cdt)
+    out, aux = _moe_local(cfg, p, x, cdt, aux)
     if "shared" in p:
         out = out + ffn_forward(cfg, p["shared"], x.to(cdt))
     return out, aux

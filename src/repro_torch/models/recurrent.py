@@ -42,15 +42,15 @@ def init_rglru_block(cfg, gen: torch.Generator, device,
     nb = cfg.n_heads if dr % cfg.n_heads == 0 else 1
     dh = dr // nb
     return {
-        "w_x": dense_init(gen, (count, d, dr), dt, device),
-        "w_gate": dense_init(gen, (count, d, dr), dt, device),
-        "conv_w": dense_init(gen, (count, w, dr), dt, device,
-                             scale=1.0 / math.sqrt(w)),
+        "w_x": dense_init(gen, (d, dr), dt, device, count=count),
+        "w_gate": dense_init(gen, (d, dr), dt, device, count=count),
+        "conv_w": dense_init(gen, (w, dr), dt, device,
+                             scale=1.0 / math.sqrt(w), count=count),
         "conv_b": torch.zeros((count, dr), dtype=dt, device=device),
-        "w_a": dense_init(gen, (count, nb, dh, dh), dt, device),
-        "w_i": dense_init(gen, (count, nb, dh, dh), dt, device),
+        "w_a": dense_init(gen, (nb, dh, dh), dt, device, count=count),
+        "w_i": dense_init(gen, (nb, dh, dh), dt, device, count=count),
         "lam": lam,
-        "w_out": dense_init(gen, (count, dr, d), dt, device),
+        "w_out": dense_init(gen, (dr, d), dt, device, count=count),
     }
 
 

@@ -7,9 +7,15 @@ times it repeats.  Parameters keep the JAX reference's pytree layout
 its ``count`` axis, and the reference's ``lax.scan`` over that axis
 becomes a Python loop over the super-blocks, each running its pattern's
 sub-layers in order.  Ported mixers: ``attn``, ``attn_local`` (ring
-cache) and ``rglru``; FFNs: ``dense``, ``moe`` and ``none``.  MLA, the
-xLSTM cells, the stub frontends and M-RoPE raise
+cache), ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``, ``moe`` and
+``none``.  MLA, the stub frontends and M-RoPE raise
 ``NotImplementedError`` naming the slice that ports them.
+
+A decode step takes its cache position as a device tensor (``pos``):
+every cache row it writes, its attention mask and its RoPE positions
+are computed from it on the device, so the step holds no host scalar
+and can be captured in a CUDA graph and replayed
+(``repro_torch.serving.graphs``).
 """
 from __future__ import annotations
 
@@ -21,25 +27,29 @@ from ..configs.base import LayerGroup, ModelConfig
 from . import layers as L
 from . import moe as M
 from . import recurrent as R
+from . import xlstm as X
 
 Params = dict[str, Any]
 
 #: weights the reference casts to the compute dtype at their use
 #: (``x @ W.astype(cdt)``; the conv taps and bias likewise) and the
 #: embedding table: the leaves :func:`cast_params` casts.  The RG-LRU
-#: gates ``w_a``/``w_i``, ``lam`` and the MoE ``router`` stay as they are:
-#: the reference reads them in f32
+#: gates ``w_a``/``w_i``, ``lam``, the MoE ``router``, the mLSTM gates
+#: ``w_i``/``w_f``, the sLSTM recurrence ``r`` and the f32 biases stay as
+#: they are: the reference reads them in f32
 _MATMUL_LEAVES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo",
                             "w_gate", "w_up", "w_down", "w_x", "w_out",
-                            "conv_w", "conv_b"})
+                            "conv_w", "conv_b", "w_q", "w_k", "w_v",
+                            "w_in"})
 
-_MIXERS = ("attn", "attn_local", "rglru")
+_MIXERS = ("attn", "attn_local", "rglru", "mlstm", "slstm")
 _FFNS = ("dense", "moe", "none")
-_LATER = {
-    "mla": "the MLA slice, with deepseek-v2",
-    "mlstm": "the xLSTM slice",
-    "slstm": "the xLSTM slice",
-}
+_LATER = {"mla": "the MLA slice, with deepseek-v2"}
+#: the recurrent mixers: forward(cfg, p, x, state) -> (out, new state)
+_RECURRENT = {"rglru": R.rglru_forward, "mlstm": X.mlstm_forward,
+              "slstm": X.slstm_forward}
+#: what :func:`init_cache` fills a state with where it is not zero
+_STATE_FILLS = {"mlstm": {"m": float("-inf")}, "slstm": {"n": 1.0}}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -74,6 +84,10 @@ def _init_mixer(cfg, mixer: str, gen, device, count: int) -> Params:
                            local=(mixer == "attn_local"))
     if mixer == "rglru":
         return R.init_rglru_block(cfg, gen, device, count)
+    if mixer == "mlstm":
+        return X.init_mlstm_block(cfg, gen, device, count)
+    if mixer == "slstm":
+        return X.init_slstm_block(cfg, gen, device, count)
     raise ValueError(mixer)
 
 
@@ -155,6 +169,10 @@ def _init_block_cache(cfg, mixer: str, batch: int, max_len: int, dtype,
         return L.init_attn_cache(cfg, batch, w, dtype, device, count)
     if mixer == "rglru":
         return R.init_rglru_state(cfg, batch, dtype, device, count)
+    if mixer == "mlstm":
+        return X.init_mlstm_state(cfg, batch, device, count)
+    if mixer == "slstm":
+        return X.init_slstm_state(cfg, batch, device, count)
     raise ValueError(mixer)
 
 
@@ -164,13 +182,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     group's ``count``: per attention sub-layer ``k``/``v`` and a host-int
     ``length`` (a local-attention layer holds a ring of min(max_len,
     local_window) rows), per RG-LRU sub-layer its ``conv`` tail and f32
-    carry ``h``."""
+    carry ``h``, per mLSTM its f32 ``C``/``n``/``m`` and per sLSTM its
+    f32 ``h``/``c``/``n``/``m`` (no ``length``, as the reference's)."""
     _check_ported(cfg)
     device = _device(device)
     return [{f"sub{i}": _init_block_cache(cfg, mixer, batch, max_len, dtype,
                                           device, g.count)
              for i, mixer in enumerate(g.pattern)}
             for g in cfg.groups]
+
+
+def reset_cache(cfg: ModelConfig, caches: list) -> list:
+    """Set ``caches`` (from :func:`init_cache`) back to what
+    :func:`init_cache` gives, IN PLACE: every tensor keeps its address,
+    which a captured decode step reads.  Returns them, length 0."""
+    for g, gc in zip(cfg.groups, caches):
+        for i, mixer in enumerate(g.pattern):
+            sub = gc[f"sub{i}"]
+            fills = _STATE_FILLS.get(mixer, {})
+            for key, t in sub.items():
+                if key == "length":
+                    sub[key] = 0
+                else:
+                    t.fill_(fills.get(key, 0.0))
+    return caches
 
 
 # ---------------------------------------------------------------------------
@@ -185,42 +220,49 @@ def _layer(tree, layer: int):
 
 
 def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
-                   cache, valid_lens):
+                   cache, steps, want_aux: bool):
     """Pre-norm residual block: x + mixer(norm(x)); x + ffn(norm(x)).
     ``cache`` holds one layer's views of the stacked cache: attention
-    writes its k/v rows into them, and the RG-LRU state is copied back."""
+    writes its k/v rows into them, and a recurrent state is copied back.
+    Returns x and the MoE load-balance aux (None unless ``want_aux``)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    if mixer == "rglru":
-        h, state = R.rglru_forward(cfg, p["mixer"], h, cache)
+    if mixer in _RECURRENT:
+        h, state = _RECURRENT[mixer](cfg, p["mixer"], h, cache)
         if cache is not None:
-            cache["conv"].copy_(state["conv"])
-            cache["h"].copy_(state["h"])
+            for key, t in state.items():
+                cache[key].copy_(t)
     else:
-        vl = None if cache is None else valid_lens.get(cache["k"].shape[1])
+        step = None if cache is None else steps.get(cache["k"].shape[1])
         h, _ = L.attn_forward(cfg, p["mixer"], h, positions, cache,
-                              local=(mixer == "attn_local"), valid_len=vl)
+                              local=(mixer == "attn_local"), step=step)
     x = x + h
+    aux = None
     if ffn == "dense":
         x = x + L.ffn_forward(cfg, p["ffn"],
                               L.rms_norm(x, p["norm2"], cfg.norm_eps))
     elif ffn == "moe":
-        h, _ = M.moe_forward(cfg, p["ffn"],
-                             L.rms_norm(x, p["norm2"], cfg.norm_eps))
+        h, aux = M.moe_forward(cfg, p["ffn"],
+                               L.rms_norm(x, p["norm2"], cfg.norm_eps),
+                               aux=want_aux)
         x = x + h
-    return x
+    return x, aux
 
 
 def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
-               valid_lens):
+               steps, auxes: list | None):
     """Loop over the group's super-blocks, each running the pattern's
     sub-layers in order (the reference's scan body).  gcache: the group's
-    cache dict or None; returns (x, new_gcache)."""
+    cache dict or None; returns (x, new_gcache).  Each MoE layer's aux is
+    appended to ``auxes`` when it is a list."""
     for layer in range(g.count):
         for i, mixer in enumerate(g.pattern):
             key = f"sub{i}"
             c = None if gcache is None else _layer(gcache[key], layer)
-            x = _block_forward(cfg, mixer, g.ffn_of(i), _layer(gp[key], layer),
-                               x, positions, c, valid_lens)
+            x, aux = _block_forward(cfg, mixer, g.ffn_of(i),
+                                    _layer(gp[key], layer), x, positions, c,
+                                    steps, auxes is not None)
+            if aux is not None:
+                auxes.append(aux)
     if gcache is None:
         return x, None
     new_cache = {}
@@ -231,44 +273,57 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
     return x, new_cache
 
 
-def _decode_masks(caches, offset: int, batch: int, device) -> dict:
-    """The decode step's ``valid_len`` per attention cache size W, made
-    once per step: ``min(offset + 1, W)`` (a global cache has W = max_len
-    > offset; a ring holds at most its W rows)."""
-    masks = {}
+def _decode_steps(caches, pos, batch: int) -> dict:
+    """The decode step's cache row and mask per attention cache size W,
+    computed on the device from ``pos`` (the cache position, (1,) int64):
+    row ``pos % W`` (a global cache has W = max_len > pos; a ring writes
+    over its oldest row) and ``valid_len`` = min(pos + 1, W) per
+    sequence, int32."""
+    steps = {}
     for gc in caches:
         for sub in gc.values():
             if "k" in sub:
                 W = sub["k"].shape[2]
-                if W not in masks:
-                    masks[W] = torch.full((batch,), min(offset + 1, W),
-                                          dtype=torch.int32, device=device)
-    return masks
+                if W not in steps:
+                    valid = torch.clamp(pos + 1, max=W).to(torch.int32)
+                    steps[W] = (pos % W, valid.repeat(batch))
+    return steps
 
 
 def forward(cfg: ModelConfig, params: Params, tokens, *, caches=None,
-            logits_slice: bool = False):
+            logits_slice: bool = False, pos=None, aux: bool = False):
     """Run the decoder.
 
     tokens: (B, S) int ids.  caches: from :func:`init_cache` (inference;
     updated in place) or None.  logits_slice: return logits for the LAST
-    position only (decode).
+    position only (decode).  pos: for one token with caches, its cache
+    position as a (1,) int64 device tensor (default: made from the
+    caches' host length).  aux: also return the MoE load-balance loss
+    summed over layers, as the reference's third result.
 
-    Returns (logits, new_caches).
+    Returns (logits, new_caches), and the aux when asked for.
     """
     _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     x = params["embed"][tokens].to(cdt)
     B, S, _ = x.shape
-    offset = _cache_length(caches) if caches is not None else 0
-    positions = (offset + torch.arange(S, device=x.device))[None].expand(B, S)
-    valid_lens = (_decode_masks(caches, offset, B, x.device)
-                  if caches is not None and S == 1 else {})
+    steps = {}
+    if caches is not None and S == 1:
+        if pos is None:
+            pos = torch.full((1,), _cache_length(caches), dtype=torch.long,
+                             device=x.device)
+        positions = pos.expand(B, 1)
+        steps = _decode_steps(caches, pos, B)
+    else:
+        offset = _cache_length(caches) if caches is not None else 0
+        positions = (offset + torch.arange(S, device=x.device))[None]
+        positions = positions.expand(B, S)
+    auxes = [] if aux else None
     new_caches = [] if caches is not None else None
     for gi, g in enumerate(cfg.groups):
         gcache = caches[gi] if caches is not None else None
         x, nc = _run_group(cfg, g, params["groups"][gi], x, positions,
-                           gcache, valid_lens)
+                           gcache, steps, auxes)
         if caches is not None:
             new_caches.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -276,13 +331,16 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, caches=None,
         x = x[:, -1:]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head.to(cdt)).float()
+    if aux:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, new_caches, sum(auxes, total)
     return logits, new_caches
 
 
 def _cache_length(caches) -> int:
     """The host-int cache length: every attention sub-cache carries the
-    same; RG-LRU states carry none (a stack without attention counts 0,
-    as the reference's)."""
+    same; recurrent states carry none (a stack without attention counts
+    0, as the reference's)."""
     for gc in caches:
         for sub in gc.values():
             if "length" in sub:
@@ -298,8 +356,11 @@ def prefill(cfg: ModelConfig, params: Params, tokens, caches):
     return logits[:, 0], new_caches
 
 
-def decode_step(cfg: ModelConfig, params: Params, token, caches):
-    """One decode step.  token: (B,) int → logits (B, V), new caches."""
+def decode_step(cfg: ModelConfig, params: Params, token, caches, pos=None):
+    """One decode step.  token: (B,) int → logits (B, V), new caches.
+    ``pos``: the cache position as a (1,) int64 device tensor, which a
+    captured step takes from its static buffer (default: the caches'
+    host length)."""
     logits, new_caches = forward(cfg, params, token[:, None], caches=caches,
-                                 logits_slice=True)
+                                 logits_slice=True, pos=pos)
     return logits[:, 0], new_caches

@@ -38,9 +38,12 @@ preemptions, KV migrations, and bin join/retire/fail on the same
 timeline as the executor's spans.
 
 **On the card**: prefill and decode run the port's decoder
-(``repro_torch.models.transformer``) with the hand-written flash- and
-decode-attention kernels; under an executor each tick runs on its
-bin's compute stream.  The greedy token is read back with ``.item()``
+(``repro_torch.models.transformer``) with the hand-written kernels;
+under an executor each tick runs on its bin's compute stream.  Each
+slot's decode step is a CUDA graph captured when the engine is built
+(:mod:`repro_torch.serving.graphs`, the counterpart of the reference's
+``jax.jit``) and replayed on the current stream; prefill stays eager,
+as do both on the CPU.  The greedy token is read back with ``.item()``
 — one host sync per generated token.
 
 KV capacity is governed per bin by the :class:`PagedKVArena` buddy pool —
@@ -88,6 +91,7 @@ from ..sched import (
     build_groups,
     get_scheduler,
 )
+from .graphs import DecodeGraphs
 from .kv_cache import PagedKVArena
 
 #: request lifecycle states (``Request.state``)
@@ -148,7 +152,9 @@ class ServingEngine:
 
     ``params`` are cast once to the config's compute dtype
     (``transformer.cast_params``).  ``device`` is where the model runs
-    (default: the device of the embedding table).
+    (default: the device of the embedding table).  Each slot's cache is
+    allocated here and reset in place at admission; on CUDA each slot's
+    decode step is captured here too (``decode_graphs``).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
@@ -202,8 +208,14 @@ class ServingEngine:
         self.completed: list[Request] = []
 
         # per-slot caches (each slot = batch-1 cache ⇒ independent
-        # prefill), made at admission on the stream the tick runs on
-        self._caches: list[list | None] = [None] * max_slots
+        # prefill) at fixed addresses, which the decode graphs read
+        self._caches = [transformer.init_cache(cfg, 1, max_seq,
+                                               device=self.device)
+                        for _ in range(max_slots)]
+        #: the per-slot decode graphs on CUDA; None on the CPU (eager)
+        self.decode_graphs = (
+            DecodeGraphs(cfg, self.params, self._caches, self.device)
+            if self.device.type == "cuda" else None)
         self._obs = obs
         #: public registry — counters/histograms the engine publishes
         #: into; :meth:`stats` is a back-compat view over it
@@ -490,11 +502,11 @@ class ServingEngine:
                     self._req_groups[req.id] = groups
                     del self._placed[req.id]
                     req._advance(state=PREFILL)
-                    # prefill this slot
+                    # prefill this slot, from the state init_cache gives:
+                    # the last occupant's recurrent state must not leak
                     tokens = torch.as_tensor(req.prompt[None, :],
                                              dtype=torch.long).to(self.device)
-                    self._caches[i] = transformer.init_cache(
-                        self.cfg, 1, self.max_seq, device=self.device)
+                    transformer.reset_cache(self.cfg, self._caches[i])
                     logits, self._caches[i] = transformer.prefill(
                         self.cfg, self.params, tokens, self._caches[i])
                     req.generated.append(int(logits[0].argmax().item()))
@@ -518,10 +530,16 @@ class ServingEngine:
             if len(req.generated) >= req.max_new_tokens:
                 self._retire(i)
                 continue
-            tok = torch.tensor([req.generated[-1]], dtype=torch.long,
-                               device=self.device)
-            logits, self._caches[i] = transformer.decode_step(
-                self.cfg, self.params, tok, self._caches[i])
+            if self.decode_graphs is not None:
+                # the cache holds the prompt and every generated token
+                # but the last, which this step feeds
+                logits = self.decode_graphs.step(i, req.generated[-1],
+                                                 req.total_tokens - 1)
+            else:
+                tok = torch.tensor([req.generated[-1]], dtype=torch.long,
+                                   device=self.device)
+                logits, self._caches[i] = transformer.decode_step(
+                    self.cfg, self.params, tok, self._caches[i])
             req.generated.append(int(logits[0].argmax().item()))
             now = self._clock()
             last = self._last_token_s.get(req.id)

@@ -608,3 +608,132 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the engine's decode step captured in CUDA graphs
+# ---------------------------------------------------------------------------
+#: the reduced families at f32 compute; xLSTM on the reference's canary
+#: stack (one mLSTM and one sLSTM block, twice), as in the CPU parity tests
+GRAPH_ARCHS = ["phi3-mini-3.8b", "recurrentgemma-2b",
+               "llama4-maverick-400b-a17b", "xlstm-1.3b"]
+
+
+def _reduced_f32(arch):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import LayerGroup
+    kw = {}
+    if arch == "xlstm-1.3b":
+        kw["groups"] = (LayerGroup(pattern=("mlstm", "slstm"), count=2,
+                                   ffn="none"),)
+    return dataclasses.replace(reduced(get_config(arch)),
+                               compute_dtype="float32", **kw)
+
+
+def _graph_rig(cuda, arch):
+    from repro_torch.models import cast_params, init_params
+    cfg = _reduced_f32(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    return cfg, _to(cast_params(cfg, params), cuda)
+
+
+def _launch_counts():
+    from repro_torch.serving.graphs import COUNTED
+    import repro_torch.kernels as K
+    return {n: getattr(K, n).launches for n in COUNTED}
+
+
+def _kernel_layers(cfg):
+    """(attention sub-layers, MoE sub-layers) of ``cfg``: the decode and
+    gating launches one step makes."""
+    attn = moe = 0
+    for g in cfg.groups:
+        for i, mixer in enumerate(g.pattern):
+            attn += g.count * (mixer in ("attn", "attn_local"))
+            moe += g.count * (g.ffn_of(i) == "moe")
+    return attn, moe
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graphed_decode_equals_eager_decode(cuda, arch):
+    """A slot's captured decode step, replayed on a side stream (as the
+    executor's compute stream) after an eager prefill, gives the eager
+    step's logits bit for bit for 40 steps (recurrentgemma's ring of 32
+    rows wraps at step 13), and each replay advances the launch counters
+    by what the graph holds: one decode launch per attention layer and
+    one gating launch per MoE layer."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.transformer import reset_cache
+    from repro_torch.serving.graphs import DecodeGraphs
+    cfg, p = _graph_rig(cuda, arch)
+    caches = init_cache(cfg, 1, 64, dtype=torch.float32, device=cuda)
+    graphs = DecodeGraphs(cfg, p, [caches], cuda)
+    attn, moe = _kernel_layers(cfg)
+    assert graphs.slots[0].launches == {
+        "flash_attention": 0, "decode_attention": attn, "rglru_scan": 0,
+        "moe_gating": moe}
+    reset_cache(cfg, caches)
+    eager = init_cache(cfg, 1, 64, dtype=torch.float32, device=cuda)
+    prompt = (torch.arange(3, 23, device=cuda) * 7 % cfg.vocab_size)[None]
+    logits, caches = prefill(cfg, p, prompt, caches)
+    _, eager = prefill(cfg, p, prompt, eager)
+    tok = int(logits[0].argmax())
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        for n in range(40):
+            before = _launch_counts()
+            glog = graphs.step(0, tok, prompt.shape[1] + n)
+            after = _launch_counts()
+            assert {k: after[k] - before[k] for k in after} \
+                == graphs.slots[0].launches
+            elog, eager = decode_step(cfg, p, torch.tensor([tok],
+                                                           device=cuda),
+                                      eager)
+            torch.testing.assert_close(glog, elog, rtol=0, atol=0)
+            tok = int(glog[0].argmax())
+    assert graphs.replays == 40
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_engine_graphs_under_the_executor_match_eager_steps(cuda, arch):
+    """The engine under the executor (each tick on the bin's compute
+    stream; more requests than slots, so slots are reset and their
+    graphs replayed for new occupants) gives the tokens of eager
+    prefill and decode steps on fresh caches, and its launch counts
+    are the graphs' per replay plus the warm-up step and the prefills."""
+    from repro_torch.core import Executor
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.serving import ServingEngine
+    cfg, p = _graph_rig(cuda, arch)
+    prompts = [np.arange(3 + 9 * i) * 7 % cfg.vocab_size for i in range(4)]
+    want = []
+    for prompt in prompts:
+        caches = init_cache(cfg, 1, 48, device=cuda)
+        logits, caches = prefill(cfg, p, torch.as_tensor(
+            prompt[None], dtype=torch.long, device=cuda), caches)
+        toks = [int(logits[0].argmax())]
+        for _ in range(5):
+            logits, caches = decode_step(cfg, p, torch.tensor(
+                [toks[-1]], device=cuda), caches)
+            toks.append(int(logits[0].argmax()))
+        want.append(toks)
+    before = _launch_counts()
+    with Executor(num_workers=2, devices=[cuda]) as ex:
+        eng = ServingEngine(cfg, p, max_slots=2, max_seq=48, executor=ex,
+                            device=cuda)
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=6)
+        got = {r.id: r.generated for r in eng.run()}
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    assert [got[i] for i in range(4)] == want
+    graphs = eng.decode_graphs
+    assert len(graphs.slots) == 2 and graphs.replays == 4 * 5
+    attn, moe = _kernel_layers(cfg)
+    steps = graphs.replays + graphs.warmup_steps
+    assert after["decode_attention"] - before["decode_attention"] \
+        == attn * steps
+    assert after["moe_gating"] - before["moe_gating"] == moe * (steps + 4)

@@ -1,7 +1,10 @@
 """The port's decoder against the JAX package's: reduced phi3-mini,
-recurrentgemma and llama4 at f32 compute, with the JAX parameters carried
-over through ``params_from_numpy``, give the same logits and greedy
-tokens; the RG-LRU and MoE blocks match on their own."""
+recurrentgemma, llama4, the dense families (minicpm-2b, deepseek-coder-33b,
+mistral-large-123b) and xLSTM at f32 compute, with the JAX parameters
+carried over through ``params_from_numpy``, give the same logits and
+greedy tokens; the RG-LRU, MoE, mLSTM and sLSTM blocks match on their
+own; the port's own draws follow the reference's scale rule; a decode
+step driven by a device position equals the host-int one."""
 import dataclasses
 
 import numpy as np
@@ -22,18 +25,37 @@ from repro.models import decode_step, forward, init_cache, init_params, prefill 
 from repro.models import layers as jl  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import recurrent as jrec  # noqa: E402
+from repro.models import transformer as jtr  # noqa: E402
+from repro.models import xlstm as jx  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import recurrent as trec  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
+from repro_torch.models import xlstm as tx  # noqa: E402
 
 ARCH = "phi3-mini-3.8b"
 RG, LLAMA4 = "recurrentgemma-2b", "llama4-maverick-400b-a17b"
+XLSTM = "xlstm-1.3b"
+#: the xLSTM stack the value-parity tests run: one mLSTM and one sLSTM
+#: block, twice -- the reference's own canary stack
+#: (``tests/test_attention.py``).  The reduced config's 16 blocks amplify
+#: a last-bit difference into logit differences far past TOL in the
+#: reference itself (test_reduced_xlstm_stack_amplifies_a_last_bit_change),
+#: so no implementation that is not bit-identical holds that stack at TOL
+XLSTM_STACK = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
+#: the dense families the port runs beside phi3 (minicpm ties its head to
+#: the embedding)
+DENSE = ("minicpm-2b", "deepseek-coder-33b", "mistral-large-123b")
 CPU = torch.device("cpu")
 #: f32 on both sides; the sums run in another order
 TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _stack(arch) -> dict:
+    """xLSTM's parity stack (``XLSTM_STACK``) for ``_cfgs``."""
+    return {"groups": XLSTM_STACK} if arch == XLSTM else {}
 
 
 def _cfgs(arch=ARCH, **kw):
@@ -145,8 +167,8 @@ def test_chunked_prefill_is_not_ported_yet(rig):
         tm.prefill(tcfg, tp, torch.tensor([[4, 5]]), tc)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "xlstm-1.3b",
-                                  "qwen2-vl-7b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen2-vl-7b",
+                                  "musicgen-large"])
 def test_later_families_raise_not_implemented(arch):
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
     with pytest.raises(NotImplementedError):
@@ -182,10 +204,10 @@ def _tree_close(got, want, **tol):
         np.testing.assert_allclose(_np(got), _np(want), **tol)
 
 
-@pytest.fixture(scope="module", params=[RG, LLAMA4])
+@pytest.fixture(scope="module", params=[RG, LLAMA4, *DENSE, XLSTM])
 def family(request):
     """(jcfg, tcfg, jax params, port params, jitted JAX prefill/decode)."""
-    jcfg, tcfg = _cfgs(request.param)
+    jcfg, tcfg = _cfgs(request.param, **_stack(request.param))
     jp = init_params(jcfg, jax.random.PRNGKey(0))
     tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
     jpre = jax.jit(lambda p, t, c: prefill(jcfg, p, t, c))
@@ -244,7 +266,7 @@ def test_family_prefill_logits_and_greedy_tokens_match(family, prompt_len,
         got.append(int(tlog[0].argmax()))
         np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
     assert got == want
-    assert tt._cache_length(tc) == prompt_len + 8
+    assert tt._cache_length(tc) == int(jtr._cache_length(jc))
     _tree_close(tc, jax.tree.map(np.asarray, jc), **TOL)
 
 
@@ -305,8 +327,9 @@ def test_rglru_forward_matches_reference(S):
     (2, 0.25, 80),     # 160 entries for 8 experts of capacity 8: drops
 ])
 def test_moe_forward_matches_reference(top_k, capacity_factor, tokens):
-    """moe_forward (shared expert and aux included) and the routed part
-    alone (_moe_local) against the reference's argsort dispatch."""
+    """moe_forward (shared expert and, when asked for, the aux included)
+    and the routed part alone (_moe_local) against the reference's
+    argsort dispatch."""
     jcfg, tcfg = _cfgs(LLAMA4)
     moe = dataclasses.replace(jcfg.moe, top_k=top_k,
                               capacity_factor=capacity_factor)
@@ -317,9 +340,13 @@ def test_moe_forward_matches_reference(top_k, capacity_factor, tokens):
     x = np.random.default_rng(4).standard_normal(
         (2, tokens // 2, jcfg.d_model)).astype(np.float32)
     jout, jaux = jmoe.moe_forward(jcfg, jp, jnp.asarray(x))
-    tout, taux = tmoe.moe_forward(tcfg, tp, torch.from_numpy(x))
+    tout, taux = tmoe.moe_forward(tcfg, tp, torch.from_numpy(x), aux=True)
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
     np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+    # serving asks for no aux: the same output, and nothing computed
+    tserve, none = tmoe.moe_forward(tcfg, tp, torch.from_numpy(x))
+    assert none is None
+    torch.testing.assert_close(tserve, tout, rtol=0, atol=0)
     jloc, _ = jmoe._moe_local(jcfg, jp, jnp.asarray(x), jnp.float32)
     tloc, _ = tmoe._moe_local(tcfg, tp, torch.from_numpy(x), torch.float32)
     np.testing.assert_allclose(tloc.numpy(), np.asarray(jloc), **TOL)
@@ -348,3 +375,237 @@ def test_cast_params_casts_the_reference_set():
     assert moe["router"].dtype == torch.float32
     assert all(w.dtype == torch.bfloat16 for part in ("experts", "shared")
                for w in moe[part].values())
+
+
+# ---------------------------------------------------------------------------
+# the port's own draws, the aux, and the decode step by device position
+# ---------------------------------------------------------------------------
+def _items(tree, path=""):
+    """(path, leaf) of every array or tensor leaf, in a fixed order (a
+    cache's host-int ``length`` is skipped)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _items(tree[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _items(v, f"{path}/{i}")
+    elif hasattr(tree, "shape"):
+        yield path, tree
+
+
+@pytest.mark.parametrize("arch", [ARCH, RG, LLAMA4, XLSTM, *DENSE])
+def test_init_scale_follows_the_reference(arch):
+    """``init_params``' own draws have the reference's scale (1/sqrt of
+    the per-layer ``shape[0]``: the expert or block count of a 3-d
+    weight): every leaf of at least 1024 elements within 10% of the
+    reference's std at PRNGKey(0), and constant leaves equal."""
+    jcfg, tcfg = reduced(get_config(arch)), tconfigs.reduced(
+        tconfigs.get_config(arch))
+    want = {k: _np(v) for k, v in _items(
+        init_params(jcfg, jax.random.PRNGKey(0)))}
+    got = {k: _np(v) for k, v in _items(
+        tm.init_params(tcfg, torch.Generator().manual_seed(0), CPU))}
+    assert got.keys() == want.keys()
+    checked = 0
+    for path, w in want.items():
+        g = got[path]
+        assert g.shape == w.shape and g.dtype == w.dtype, path
+        if w.std() == 0:
+            np.testing.assert_array_equal(g, w, err_msg=path)
+        elif w.size >= 1024:
+            assert abs(g.std() / w.std() - 1) < 0.1, \
+                (path, float(g.std()), float(w.std()))
+            checked += 1
+    assert checked >= 4
+
+
+def test_forward_returns_the_reference_aux_when_asked():
+    jcfg, tcfg = _cfgs(LLAMA4)
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    toks = np.random.default_rng(6).integers(0, jcfg.vocab_size, (2, 9))
+    jlog, _, jaux = forward(jcfg, jp, jnp.asarray(toks, jnp.int32))
+    tlog, _, taux = tm.forward(tcfg, tp, torch.from_numpy(toks), aux=True)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+    assert float(taux) > 0
+    plain, _ = tm.forward(tcfg, tp, torch.from_numpy(toks))
+    torch.testing.assert_close(plain, tlog, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch,prompt_len,steps", [
+    (ARCH, 11, 8),
+    (RG, 20, 40),          # the ring of 32 rows wraps at step 12
+    (LLAMA4, 11, 8),
+    (XLSTM, 11, 8),
+])
+def test_decode_by_device_position_matches_host_path_and_reference(
+        arch, prompt_len, steps):
+    """A decode step driven by a device position (the captured step's
+    input) on caches whose host length never moves gives the host-int
+    step's logits bit for bit, and the reference's at TOL."""
+    jcfg, tcfg = _cfgs(arch, **_stack(arch))
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    jdec = jax.jit(lambda p, t, c: decode_step(jcfg, p, t, c))
+    prompt = np.random.default_rng(7).integers(0, jcfg.vocab_size,
+                                               prompt_len)
+    jc = init_cache(jcfg, 1, 64, dtype=jnp.float32)
+    jlog, jc = prefill(jcfg, jp, jnp.asarray(prompt[None], jnp.int32), jc)
+    host, dev = (tm.init_cache(tcfg, 1, 64, dtype=torch.float32, device=CPU)
+                 for _ in range(2))
+    _, host = tm.prefill(tcfg, tp, torch.from_numpy(prompt[None]), host)
+    _, dev = tm.prefill(tcfg, tp, torch.from_numpy(prompt[None]), dev)
+    pos = torch.zeros((1,), dtype=torch.long)
+    tok = int(jnp.argmax(jlog[0]))
+    for n in range(steps):
+        jlog, jc = jdec(jp, jnp.asarray([tok], jnp.int32), jc)
+        hlog, host = tm.decode_step(tcfg, tp, torch.tensor([tok]), host)
+        pos.fill_(prompt_len + n)
+        dlog, _ = tm.decode_step(tcfg, tp, torch.tensor([tok]), dev, pos=pos)
+        torch.testing.assert_close(dlog, hlog, rtol=0, atol=0)
+        np.testing.assert_allclose(dlog.numpy(), np.asarray(jlog), **TOL)
+        tok = int(jnp.argmax(jlog[0]))
+    assert tt._cache_length(dev) == (0 if arch == XLSTM else prompt_len)
+    for (_, d), (_, h) in zip(_items(dev), _items(host), strict=True):
+        torch.testing.assert_close(d, h, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", [ARCH, RG, LLAMA4, XLSTM])
+def test_reset_cache_restores_init_cache_in_place(arch):
+    _, tcfg = _cfgs(arch)
+    caches = tm.init_cache(tcfg, 1, 48, dtype=torch.float32, device=CPU)
+    ptrs = [t.data_ptr() for _, t in _items(caches)]
+    params = tm.init_params(tcfg, torch.Generator().manual_seed(0), CPU)
+    _, caches = tm.prefill(tcfg, params, torch.arange(1, 21)[None], caches)
+    _, caches = tm.decode_step(tcfg, params, torch.tensor([5]), caches)
+    out = tt.reset_cache(tcfg, caches)
+    assert [t.data_ptr() for _, t in _items(out)] == ptrs
+    fresh = tm.init_cache(tcfg, 1, 48, dtype=torch.float32, device=CPU)
+    assert tt._cache_length(out) == 0
+    _tree_close(out, fresh, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# xLSTM
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("S", [1, 37, 2048])
+def test_mlstm_forward_matches_reference(S):
+    """One mLSTM block: the step form (S = 1, from the state a 13-token
+    prefill left), one chunk (37) and two chunks of 1024 (2048), with and
+    without a state.  At 2048 each output sums 1024 products that cancel
+    (outputs in the hundreds): f32 sums in another order differ there by
+    up to ~1e-4 of the output's largest value, so the absolute part of
+    TOL scales with it."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    jp = jx.init_mlstm_block(jcfg, jax.random.PRNGKey(5))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 13 if S == 1 else S,
+                             jcfg.d_model)).astype(np.float32)
+    js = jx.init_mlstm_state(jcfg, 2)
+    ts = {k: v[0] for k, v in tx.init_mlstm_state(tcfg, 2, CPU).items()}
+    jout, js = jx.mlstm_forward(jcfg, jp, jnp.asarray(x), js)
+    tout, ts = tx.mlstm_forward(tcfg, tp, torch.from_numpy(x), ts)
+    if S == 1:
+        x1 = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
+        jout, js = jx.mlstm_forward(jcfg, jp, jnp.asarray(x1), js)
+        tout, ts = tx.mlstm_forward(tcfg, tp, torch.from_numpy(x1), ts)
+    def scaled(ref):
+        if S <= 1024:
+            return TOL
+        return dict(rtol=TOL["rtol"],
+                    atol=TOL["atol"] * max(1.0, np.abs(ref).max()))
+
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout),
+                               **scaled(np.asarray(jout)))
+    for k in ts:
+        np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]),
+                                   **scaled(np.asarray(js[k])))
+    jno, _ = jx.mlstm_forward(jcfg, jp, jnp.asarray(x))
+    tno, none = tx.mlstm_forward(tcfg, tp, torch.from_numpy(x))
+    assert none is None
+    np.testing.assert_allclose(tno.numpy(), np.asarray(jno),
+                               **scaled(np.asarray(jno)))
+
+
+def test_mlstm_prompt_past_a_chunk_must_be_a_multiple_of_it():
+    _, tcfg = _cfgs(XLSTM)
+    jp = jx.init_mlstm_block(_cfgs(XLSTM)[0], jax.random.PRNGKey(5))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    with pytest.raises(ValueError, match="not a multiple"):
+        tx.mlstm_forward(tcfg, tp, torch.zeros((1, 1100, tcfg.d_model)))
+
+
+@pytest.mark.parametrize("S", [13, 1])
+def test_slstm_forward_matches_reference(S):
+    """One sLSTM block with its gated FFN tail: a 13-token prompt with a
+    state, then (S = 1) one step from the state it left; and without a
+    state."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    jp = jx.init_slstm_block(jcfg, jax.random.PRNGKey(6))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 13, jcfg.d_model)).astype(np.float32)
+    js = jx.init_slstm_state(jcfg, 2)
+    ts = {k: v[0] for k, v in tx.init_slstm_state(tcfg, 2, CPU).items()}
+    jout, js = jx.slstm_forward(jcfg, jp, jnp.asarray(x), js)
+    tout, ts = tx.slstm_forward(tcfg, tp, torch.from_numpy(x), ts)
+    if S == 1:
+        x1 = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
+        jout, js = jx.slstm_forward(jcfg, jp, jnp.asarray(x1), js)
+        tout, ts = tx.slstm_forward(tcfg, tp, torch.from_numpy(x1), ts)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    _tree_close(ts, js, **TOL)
+    jno, _ = jx.slstm_forward(jcfg, jp, jnp.asarray(x))
+    tno, none = tx.slstm_forward(tcfg, tp, torch.from_numpy(x))
+    assert none is None
+    np.testing.assert_allclose(tno.numpy(), np.asarray(jno), **TOL)
+
+
+def test_reduced_xlstm_stack_amplifies_a_last_bit_change():
+    """Why the value-parity tests run ``XLSTM_STACK``: in the reference
+    alone, scaling the embedding by 1 + 1e-7 (about one f32 ulp) moves the
+    reduced 16-block stack's logits by more than 0.1, a thousand times
+    TOL, while the 4-block canary stack moves by less than TOL."""
+    toks = jnp.asarray(np.random.default_rng(1).integers(0, 256, (2, 13)),
+                       jnp.int32)
+    moved = {}
+    for name, kw in (("full", {}), ("canary", {"groups": XLSTM_STACK})):
+        jcfg = _cfgs(XLSTM, **kw)[0]
+        jp = init_params(jcfg, jax.random.PRNGKey(0))
+        nudged = dict(jp, embed=jp["embed"] * (1 + 1e-7))
+        a, b = (np.asarray(forward(jcfg, p, toks)[0]) for p in (jp, nudged))
+        moved[name] = float(np.abs(a - b).max())
+    assert moved["full"] > 0.1 and moved["canary"] < TOL["atol"], moved
+
+
+def test_xlstm_prefill_then_decode_matches_the_full_forward():
+    """The chunkwise prefill and the step-form decode against the
+    teacher-forced forward, at the reference's own 2e-3 on its canary
+    stack (``tests/test_attention.py``)."""
+    jcfg, tcfg = _cfgs(XLSTM, groups=XLSTM_STACK)
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, tcfg.vocab_size, (2, 12)))
+    full, _ = tm.forward(tcfg, tp, toks)
+    caches = tm.init_cache(tcfg, 2, 14, device=CPU)
+    lp, caches = tm.prefill(tcfg, tp, toks[:, :-1], caches)
+    torch.testing.assert_close(lp, full[:, -2], rtol=2e-3, atol=2e-3)
+    ld, _ = tm.decode_step(tcfg, tp, toks[:, -1], caches)
+    torch.testing.assert_close(ld, full[:, -1], rtol=2e-3, atol=2e-3)
+
+
+def test_xlstm_cast_params_keeps_the_reference_f32_leaves():
+    """At bf16 compute the projections are cast; the gates w_i/w_f, the
+    recurrence r and the biases stay f32, as the reference reads them."""
+    cfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_config(XLSTM)),
+                              compute_dtype="bfloat16")
+    out = tm.cast_params(
+        cfg, tm.init_params(cfg, torch.Generator().manual_seed(0), CPU))
+    ml, sl = (out["groups"][0][k]["mixer"] for k in ("sub0", "sub7"))
+    assert {k for k, v in ml.items() if v.dtype == torch.bfloat16} \
+        == {"w_up", "w_q", "w_k", "w_v", "w_down"}
+    assert {k for k, v in sl.items() if v.dtype == torch.bfloat16} \
+        == {"w_in", "w_up", "w_down"}

@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX package's: the same requests
-give the same greedy tokens for phi3-mini, recurrentgemma and llama4,
-inline and under the port's executor; and the port stands alone — no
-module of it imports JAX or the JAX package."""
+give the same greedy tokens for phi3-mini, recurrentgemma, llama4, the
+dense families and xLSTM, inline and under the port's executor; a slot
+reused after a reset serves as a fresh one; and the port stands alone —
+no module of it imports JAX or the JAX package."""
 import ast
 import dataclasses
 import os
@@ -21,6 +22,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 
 from repro.configs import get_config, reduced  # noqa: E402
+from repro.configs.base import LayerGroup  # noqa: E402
 from repro.models import init_params  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
@@ -102,17 +104,32 @@ def test_serve_launcher_on_cpu(capsys):
     assert capsys.readouterr().out.startswith("3 requests / 6 tokens")
 
 
+#: xLSTM's parity stack: the reference's canary (one mLSTM and one sLSTM
+#: block, twice).  The reduced config's 16 blocks turn a last-bit
+#: difference into logit differences past a greedy margin
+#: (tests/test_torch_models.py, XLSTM_STACK and the test beside it)
+XLSTM_STACK = {"groups": (LayerGroup(pattern=("mlstm", "slstm"), count=2,
+                                     ffn="none"),)}
+
+
+def _family_cfgs(arch):
+    kw = XLSTM_STACK if arch == "xlstm-1.3b" else {}
+    return (dataclasses.replace(reduced(get_config(arch)),
+                                compute_dtype="float32", **kw),
+            dataclasses.replace(tconfigs.reduced(tconfigs.get_config(arch)),
+                                compute_dtype="float32", **kw))
+
+
 @pytest.fixture(scope="module",
-                params=["recurrentgemma-2b", "llama4-maverick-400b-a17b"])
+                params=["recurrentgemma-2b", "llama4-maverick-400b-a17b",
+                        "minicpm-2b", "deepseek-coder-33b",
+                        "mistral-large-123b", "xlstm-1.3b"])
 def family(request):
-    """A reduced recurrent or MoE model in both packages, and the JAX
-    engine's tokens for PROMPTS (max_seq 48: recurrentgemma's ring of 32
-    rows wraps on the longest request)."""
-    jcfg = dataclasses.replace(reduced(get_config(request.param)),
-                               compute_dtype="float32")
-    tcfg = dataclasses.replace(
-        tconfigs.reduced(tconfigs.get_config(request.param)),
-        compute_dtype="float32")
+    """A reduced recurrent, MoE, dense or xLSTM model in both packages,
+    and the JAX engine's tokens for PROMPTS (max_seq 48: recurrentgemma's
+    ring of 32 rows wraps on the longest request; four requests on two
+    slots, so two slots are reset and reused)."""
+    jcfg, tcfg = _family_cfgs(request.param)
     jp = init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
     eng = JaxEngine(jcfg, jp, max_slots=2, max_seq=48)
@@ -126,8 +143,8 @@ FAMILY_PROMPTS = [np.arange(3 + 9 * i) * 7 % 256 for i in range(4)]
 
 @pytest.mark.parametrize("workers", [None, 1, 2])
 def test_family_engine_matches_jax_engine(family, workers):
-    """recurrentgemma and llama4, inline and under the executor: the JAX
-    engine's greedy tokens."""
+    """Each family, inline and under the executor: the JAX engine's
+    greedy tokens."""
     tcfg, tp, want = family
 
     def run(executor=None):
@@ -146,8 +163,28 @@ def test_family_engine_matches_jax_engine(family, workers):
     assert all(len(t) == 6 for t in got.values())
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b"])
+def test_reused_slot_serves_as_a_fresh_engine(arch):
+    """A slot whose last occupant left recurrent state and k/v rows
+    behind serves the next request as a fresh engine does: admission
+    resets the slot's cache to what init_cache gives."""
+    _, tcfg = _family_cfgs(arch)
+    from repro_torch.models import init_params as tinit
+    tp = tinit(tcfg, torch.Generator().manual_seed(0), CPU)
+    first, second = FAMILY_PROMPTS[3], FAMILY_PROMPTS[1]
+    eng = ServingEngine(tcfg, tp, max_slots=1, max_seq=48)
+    eng.submit(first, max_new_tokens=6)
+    eng.submit(second, max_new_tokens=6)
+    reused = {r.id: r.generated for r in eng.run()}[1]
+    fresh = ServingEngine(tcfg, tp, max_slots=1, max_seq=48)
+    fresh.submit(second, max_new_tokens=6)
+    assert fresh.run()[0].generated == reused
+    assert eng.decode_graphs is None          # the CPU engine is eager
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "xlstm-1.3b"])
 def test_serve_launcher_on_cpu_for_the_new_families(arch, capsys):
     from repro_torch.launch import serve
     assert serve.main(["--arch", arch, "--reduced", "--requests", "3",
