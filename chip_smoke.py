@@ -9,22 +9,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version at the serving
-   paths' shapes (phi3-mini, recurrentgemma-2b, llama4-maverick and
-   deepseek-v2's routing), with the scan's and the gating's launch
+   paths' shapes (phi3-mini, recurrentgemma-2b, llama4-maverick,
+   deepseek-v2's MLA heads (q/k 192, v 128) and routing, qwen2-vl's
+   GQA and musicgen's D 64), with the scan's and the gating's launch
    shapes — every element within the tolerance of the
    plain version's f32 result (one bf16 rounding for a bf16 output; MoE
    gating's experts, slots and keep identical, gates within 1e-6), median
    time (CUDA events, L2 flushed before each launch), the plain version's
    time, ``torch.nn.functional.scaled_dot_product_attention``'s time on
    the same inputs for the attention kernels (a yardstick only: the port
-   never calls it; no single PyTorch call computes the scan or the
+   never calls it; where Dv != D, the first backend that takes it, named
+   in the output; no single PyTorch call computes the scan or the
    routing) and the bound;
-4. small-input reference: reduced phi3-mini, recurrentgemma, llama4 and
+4. small-input reference: reduced phi3-mini, recurrentgemma, llama4,
    xLSTM (the reference's canary stack of one mLSTM and one sLSTM block,
-   twice) served on the card and on the CPU (plain kernels) give the same
-   greedy tokens, and on the card the decode step replayed from its CUDA
-   graph gives the eager step's tokens and logits;
-5. serve, four paths, each through ``repro_torch.launch.serve.serve``
+   twice), deepseek-v2, qwen2-vl and musicgen served on the card and on
+   the CPU (plain kernels) give the same greedy tokens, and on the card
+   the decode step replayed from its CUDA graph gives the eager step's
+   tokens and logits; qwen2-vl's prefill of stub patch embeddings at
+   distinct (t, h, w) positions gives the CPU's logits;
+5. serve, seven paths, each through ``repro_torch.launch.serve.serve``
    and the Executor over ``cuda:0`` with random weights from seed 0, 4
    slots and 16 new tokens per request, every decode step replayed from
    its slot's CUDA graph, the launch counts zeroed before and read after
@@ -41,7 +45,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
      weights), the 6 requests, max_seq 1024; moe_gating = prefills +
      decode steps, flash = prefills, decode = decode steps;
    - xlstm-1.3b, full width and depth (48 blocks, f32), the 6 requests,
-     max_seq 1024; no kernel (the reference has none for xLSTM).
+     max_seq 1024; no kernel (the reference has none for xLSTM);
+   - deepseek-v2-236b at full width cut to 2 layers of 60 (the dense
+     first layer and one MoE layer, 160 experts top-6 + 2 shared; f32
+     weights), the 6 requests, max_seq 1024; flash = 2 × prefills,
+     decode = 2 × decode steps, moe_gating = prefills + decode steps;
+   - qwen2-vl-7b, full width and depth (28 layers, M-RoPE, f32), the 6
+     text requests, max_seq 1024; flash = 28 × prefills, decode = 28 ×
+     decode steps;
+   - musicgen-large, full width and depth (48 layers, f32), 6 requests
+     of stub EnCodec ids (``make_audio_tokens``), max_seq 1024; flash =
+     48 × prefills, decode = 48 × decode steps.
    Every request completes with 16 tokens, a repeated prompt gets the
    same tokens, every decode step was a replay, and a direct prefill and
    decode step give finite logits of the vocabulary's width.  After it,
@@ -63,6 +77,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -82,6 +97,9 @@ PHI3 = "phi3-mini-3.8b"
 RG = "recurrentgemma-2b"
 LLAMA4 = "llama4-maverick-400b-a17b"
 XLSTM = "xlstm-1.3b"
+DSV2 = "deepseek-v2-236b"
+QWEN2VL = "qwen2-vl-7b"
+MUSICGEN = "musicgen-large"
 
 
 def _median_ms(torch, fn, flush, reps: int = 15) -> float:
@@ -153,53 +171,94 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
 
     chosen = {}
     # phi3-mini (D 96), GQA at G 4 (D 128), llama4's prefill (H 40, K 8,
-    # G 5, D 128), recurrentgemma (MQA, D 256, window 2048)
-    for B, H, K, S, D, win, dt in [(1, 32, 32, 128, 96, None, "bfloat16"),
-                                   (1, 32, 32, 512, 96, None, "bfloat16"),
-                                   (1, 32, 32, 1000, 96, None, "bfloat16"),
-                                   (1, 32, 8, 1000, 128, None, "bfloat16"),
-                                   (1, 40, 8, 512, 128, None, "bfloat16"),
-                                   (1, 32, 32, 512, 96, None, "float32"),
-                                   (1, 10, 1, 512, 256, 2048, "bfloat16"),
-                                   (1, 10, 1, 3000, 256, 2048, "bfloat16"),
-                                   (1, 10, 1, 3000, 256, 2048, "float32")]:
+    # G 5, D 128), recurrentgemma (MQA, D 256, window 2048), deepseek-v2's
+    # MLA (q/k 192, v 128), qwen2-vl (H 28, K 4, G 7) and musicgen (D 64)
+    for B, H, K, S, D, Dv, win, dt in [
+            (1, 32, 32, 128, 96, 96, None, "bfloat16"),
+            (1, 32, 32, 512, 96, 96, None, "bfloat16"),
+            (1, 32, 32, 1000, 96, 96, None, "bfloat16"),
+            (1, 32, 8, 1000, 128, 128, None, "bfloat16"),
+            (1, 40, 8, 512, 128, 128, None, "bfloat16"),
+            (1, 32, 32, 512, 96, 96, None, "float32"),
+            (1, 10, 1, 512, 256, 256, 2048, "bfloat16"),
+            (1, 10, 1, 3000, 256, 256, 2048, "bfloat16"),
+            (1, 10, 1, 3000, 256, 256, 2048, "float32"),
+            (1, 128, 128, 512, 192, 128, None, "bfloat16"),
+            (1, 128, 128, 512, 192, 128, None, "float32"),
+            (1, 28, 4, 512, 128, 128, None, "bfloat16"),
+            (1, 32, 32, 512, 64, 64, None, "bfloat16")]:
         dtype = getattr(torch, dt)
-        q, k, v = (randn((B, S, n, D), dtype) for n in (H, K, K))
-        out = flash_attention(q, k, v, window=win)
+        q, k = (randn((B, S, n, D), dtype) for n in (H, K))
+        v = randn((B, S, K, Dv), dtype)
+        scale = D ** -0.5
+        out = flash_attention(q, k, v, window=win, scale=scale)
         ref = flash_attention_plain(q.float(), k.float(), v.float(),
-                                    window=win)
+                                    window=win, scale=scale)
         err = _check(torch, "flash_attention", out, ref, dt)
         del ref
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if win is None:
-            lib = _median_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=H != K), flush)
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale,
+                    enable_gqa=H != K)
         else:
             pos = torch.arange(S, device=dev)
             band = (pos[:, None] >= pos[None, :]) \
                 & (pos[:, None] - pos[None, :] < win)
-            lib = _median_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=band, enable_gqa=H != K), flush)
-        # each query row sees min(row + 1, window) keys: QK^T and PV
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, scale=scale,
+                    enable_gqa=H != K)
+        lib, backend = _sdpa_ms(torch, sdpa, flush, pinned=Dv != D)
+        # each query row sees min(row + 1, window) keys: QK^T over D and
+        # PV over Dv
         seen = sum(min(i + 1, win or S) for i in range(S))
-        flops = 4 * B * H * D * seen
-        nbytes = 2 * (B * S * H * D + B * S * K * D) * dtype.itemsize
+        flops = 2 * B * H * (D + Dv) * seen
+        nbytes = (B * S * (H + K) * (D + Dv)) * dtype.itemsize
         bound, bound_by = _bounds(nbytes, flops, dt)
         row = {"name": "flash_attention", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
                "max_abs_err": err,
                "ms": _median_ms(torch, lambda: flash_attention(
-                   q, k, v, window=win), flush),
+                   q, k, v, window=win, scale=scale), flush),
                "plain_ms": _median_ms(torch, lambda: flash_attention_plain(
-                   q, k, v, window=win), flush),
+                   q, k, v, window=win, scale=scale), flush),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": lib}
-        print(f"  flash_attention B={B} H={H} K={K} S={S} D={D} window={win} "
-              f"{dt}: {err} {ATOL} {RTOL[dt]} {row['ms']} {row['plain_ms']} "
-              f"{lib} {bound} {bound_by}")
+        print(f"  flash_attention B={B} H={H} K={K} S={S} D={D} Dv={Dv} "
+              f"window={win} {dt}: {err} {ATOL} {RTOL[dt]} {row['ms']} "
+              f"{row['plain_ms']} {lib} ({backend}) {bound} {bound_by}")
         if (S, K, D, dt) == (512, 32, 96, "bfloat16"):
             chosen["flash_attention"] = row
     return chosen
+
+
+#: SDPA's backends, in the order tried where one must take Dv != D
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")
+
+
+def _sdpa_ms(torch, sdpa, flush, *, pinned: bool) -> tuple[float, str]:
+    """SDPA's time on the case (a yardstick only) and the backend that ran:
+    PyTorch's own choice, or, ``pinned`` (a value head dim unlike q's,
+    which not every backend takes), the first of ``SDPA_BACKENDS`` that
+    accepts the inputs."""
+    if not pinned:
+        return _median_ms(torch, sdpa, flush), "default"
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                with warnings.catch_warnings():   # why a backend declined
+                    warnings.simplefilter("ignore", UserWarning)
+                    sdpa()
+            except RuntimeError:
+                continue
+            return _median_ms(torch, sdpa, flush), name
+    raise AssertionError("no SDPA backend takes the case")
 
 
 def _decode_cases(torch, dev, randn, flush) -> dict:
@@ -209,47 +268,57 @@ def _decode_cases(torch, dev, randn, flush) -> dict:
 
     chosen = {}
     # phi3-mini (H = K = 32, D 96); recurrentgemma's ring (H 10, K 1, D
-    # 256, S = window 2048); llama4 (H 40, K 8, D 128)
-    for B, H, K, S, D, lens, dt in [
-            (1, 32, 32, 1024, 96, [1], "bfloat16"),
-            (1, 32, 32, 1024, 96, [517], "bfloat16"),
-            (1, 32, 32, 1024, 96, [1024], "bfloat16"),
-            (4, 32, 32, 1024, 96, [1024, 517, 64, 1], "bfloat16"),
-            (1, 32, 32, 1024, 96, [517], "float32"),
-            (1, 10, 1, 2048, 256, [1], "bfloat16"),
-            (1, 10, 1, 2048, 256, [1000], "bfloat16"),
-            (1, 10, 1, 2048, 256, [2048], "bfloat16"),
-            (1, 10, 1, 2048, 256, [1000], "float32"),
-            (1, 40, 8, 1024, 128, [517], "bfloat16")]:
+    # 256, S = window 2048); llama4 (H 40, K 8, D 128); deepseek-v2's MLA
+    # (H = K = 128, q/k 192, v 128); qwen2-vl (H 28, K 4); musicgen (D 64)
+    for B, H, K, S, D, Dv, lens, dt in [
+            (1, 32, 32, 1024, 96, 96, [1], "bfloat16"),
+            (1, 32, 32, 1024, 96, 96, [517], "bfloat16"),
+            (1, 32, 32, 1024, 96, 96, [1024], "bfloat16"),
+            (4, 32, 32, 1024, 96, 96, [1024, 517, 64, 1], "bfloat16"),
+            (1, 32, 32, 1024, 96, 96, [517], "float32"),
+            (1, 10, 1, 2048, 256, 256, [1], "bfloat16"),
+            (1, 10, 1, 2048, 256, 256, [1000], "bfloat16"),
+            (1, 10, 1, 2048, 256, 256, [2048], "bfloat16"),
+            (1, 10, 1, 2048, 256, 256, [1000], "float32"),
+            (1, 40, 8, 1024, 128, 128, [517], "bfloat16"),
+            (1, 128, 128, 1024, 192, 128, [517], "bfloat16"),
+            (1, 128, 128, 1024, 192, 128, [517], "float32"),
+            (1, 28, 4, 1024, 128, 128, [517], "bfloat16"),
+            (1, 32, 32, 1024, 64, 64, [517], "bfloat16")]:
         dtype = getattr(torch, dt)
         q = randn((B, H, D), dtype)
-        k, v = (randn((B, S, K, D), dtype) for _ in range(2))
+        k, v = randn((B, S, K, D), dtype), randn((B, S, K, Dv), dtype)
         vl = torch.tensor(lens, dtype=torch.int32, device=dev)
-        out = decode_attention(q, k, v, vl)
-        ref = decode_attention_plain(q.float(), k.float(), v.float(), vl)
+        scale = D ** -0.5
+        out = decode_attention(q, k, v, vl, scale=scale)
+        ref = decode_attention_plain(q.float(), k.float(), v.float(), vl,
+                                     scale=scale)
         err = _check(torch, "decode_attention", out, ref, dt)
         qt = q[:, :, None]
         kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
         mask = (torch.arange(S, device=dev)[None, :] < vl[:, None])
         mask = mask[:, None, None, :]
-        lib = _median_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=H != K), flush)
+        lib, backend = _sdpa_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=H != K),
+            flush, pinned=Dv != D)
         rows = sum(min(n, S) for n in lens)
-        nbytes = dtype.itemsize * (2 * rows * K * D + 2 * B * H * D) + 4 * B
-        bound, bound_by = _bounds(nbytes, 4 * rows * (H // K) * K * D, dt)
+        nbytes = dtype.itemsize * (rows * K * (D + Dv) + B * H * (D + Dv)) \
+            + 4 * B
+        bound, bound_by = _bounds(nbytes, 2 * rows * H * (D + Dv), dt)
         row = {"name": "decode_attention", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
                "replaces": "src/repro/kernels/decode_attention/kernel.py:90",
                "max_abs_err": err,
-               "ms": _median_ms(
-                   torch, lambda: decode_attention(q, k, v, vl), flush),
-               "plain_ms": _median_ms(
-                   torch, lambda: decode_attention_plain(q, k, v, vl), flush),
+               "ms": _median_ms(torch, lambda: decode_attention(
+                   q, k, v, vl, scale=scale), flush),
+               "plain_ms": _median_ms(torch, lambda: decode_attention_plain(
+                   q, k, v, vl, scale=scale), flush),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": lib}
-        print(f"  decode_attention B={B} H={H} K={K} S={S} D={D} "
+        print(f"  decode_attention B={B} H={H} K={K} S={S} D={D} Dv={Dv} "
               f"valid_len={lens} {dt}: {err} {ATOL} {RTOL[dt]} {row['ms']} "
-              f"{row['plain_ms']} {lib} {bound} {bound_by}")
-        if (H, lens, dt) == (32, [517], "bfloat16"):
+              f"{row['plain_ms']} {lib} ({backend}) {bound} {bound_by}")
+        if (H, K, D, lens, dt) == (32, 32, 96, [517], "bfloat16"):
             chosen["decode_attention"] = row
     return chosen
 
@@ -299,7 +368,8 @@ def _rglru_cases(torch, dev, randn, flush) -> dict:
 def _gating_cases(torch, dev, randn, flush) -> dict:
     """llama4's routing (E 128, top-1) at a decode step and a 512-token
     prefill, deepseek-v2's (E 160, top-6) over 4096 tokens at a capacity
-    that drops entries, and tied logits.  eids, slots and keep must equal
+    that drops entries and at its serving path's decode step (C 8) and
+    512-token prefill (C 24), and tied logits.  eids, slots and keep must equal
     the plain version's; gates within 1e-6.  No single PyTorch call
     computes the routing, so library_ms is null."""
     from repro_torch.kernels import moe_gating, moe_gating_plain
@@ -307,10 +377,13 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
                                                     max_cluster_blocks)
 
     chosen = {}
-    for name, T, E, k, C, tied in [("llama4 decode", 1, 128, 1, 8, False),
-                                   ("llama4 prefill", 512, 128, 1, 8, False),
-                                   ("deepseek-v2", 4096, 160, 6, 64, False),
-                                   ("tied logits", 512, 128, 2, 8, True)]:
+    for name, T, E, k, C, tied in [
+            ("llama4 decode", 1, 128, 1, 8, False),
+            ("llama4 prefill", 512, 128, 1, 8, False),
+            ("deepseek-v2", 4096, 160, 6, 64, False),
+            ("deepseek-v2 decode", 1, 160, 6, 8, False),
+            ("deepseek-v2 prefill", 512, 160, 6, 24, False),
+            ("tied logits", 512, 128, 2, 8, True)]:
         logits = randn((T, E), torch.float32) * 3
         if tied:                      # values in {-1, 0, 1}: many ties
             logits = (logits / 2).round().clamp(-1, 1)
@@ -345,13 +418,15 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
 
 
 def reference_phase(torch, dev) -> None:
-    """Reduced phi3-mini, recurrentgemma, llama4 and xLSTM (f32 compute)
-    on the card with the kernels and on the CPU with their plain
-    versions: the same greedy tokens.  xLSTM runs the reference's canary
-    stack (one mLSTM and one sLSTM block, twice): its reduced 16-block
-    stack turns a last-bit difference into logit differences past a
-    greedy margin.  On the card, a decode step replayed from its CUDA
-    graph gives the eager step's tokens and logits bit for bit."""
+    """Reduced phi3-mini, recurrentgemma, llama4, xLSTM, deepseek-v2 (MLA),
+    qwen2-vl (M-RoPE) and musicgen (f32 compute) on the card with the
+    kernels and on the CPU with their plain versions: the same greedy
+    tokens.  xLSTM runs the reference's canary stack (one mLSTM and one
+    sLSTM block, twice): its reduced 16-block stack turns a last-bit
+    difference into logit differences past a greedy margin.  On the card,
+    a decode step replayed from its CUDA graph gives the eager step's
+    tokens and logits bit for bit.  qwen2-vl also prefills stub patch
+    embeddings at distinct (t, h, w) positions, card against CPU."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import LayerGroup
     from repro_torch.models import (cast_params, decode_step, init_cache,
@@ -360,7 +435,7 @@ def reference_phase(torch, dev) -> None:
 
     cpu = torch.device("cpu")
     canary = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
-    for arch in (PHI3, RG, LLAMA4, XLSTM):
+    for arch in (PHI3, RG, LLAMA4, XLSTM, DSV2, QWEN2VL, MUSICGEN):
         kw = {"groups": canary} if arch == XLSTM else {}
         cfg = dataclasses.replace(reduced(get_config(arch)),
                                   compute_dtype="float32", **kw)
@@ -401,6 +476,39 @@ def reference_phase(torch, dev) -> None:
         if toks != gt or diff != 0.0:
             raise AssertionError(f"{arch}: the graphed decode steps differ "
                                  f"from the eager ones")
+        if arch == QWEN2VL:
+            _patch_prefill(torch, cfg, params, prompt, dev)
+
+
+def _patch_prefill(torch, cfg, params, prompt, dev) -> None:
+    """A prefill of stub patch embeddings (a 2 x 4 grid at t = 0) and the
+    text after them at t = h = w = 3, 4, ..., card against CPU."""
+    from repro_torch.models import cast_params, init_cache, prefill
+    from repro_torch.models.frontends import make_patch_embeds
+
+    P, S = cfg.n_visual_tokens, len(prompt)
+    emb = make_patch_embeds(torch.Generator().manual_seed(0), 1, P,
+                            cfg.d_model, dtype=torch.float32)
+    grid = torch.stack([torch.zeros(P, dtype=torch.long),
+                        torch.arange(P) // 4, torch.arange(P) % 4])
+    text = torch.arange(3, 3 + S).expand(3, S)
+    positions = torch.cat([grid, text], dim=1)[:, None]      # (3, 1, P + S)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        p = _to(torch, cast_params(cfg, params), d)
+        caches = init_cache(cfg, 1, 64, device=d)
+        logits, _ = prefill(cfg, p, prompt[None].to(d), caches,
+                            extra_embeds=emb.to(d),
+                            positions=positions.to(d))
+        out[d.type] = logits.cpu()
+    err = float((out["cpu"] - out["cuda"]).abs().max())
+    tok = [int(out[t][0].argmax()) for t in ("cpu", "cuda")]
+    print(f"  qwen2-vl prefill of {P} patch embeddings + {S} tokens at "
+          f"(t, h, w) positions: cpu token {tok[0]} cuda {tok[1]}; max "
+          f"logit diff {err}")
+    if tok[0] != tok[1] or err > 1e-3:
+        raise AssertionError("qwen2-vl: the card's patch prefill differs "
+                             "from the CPU's")
 
 
 def _to(torch, tree, device):
@@ -427,7 +535,8 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
                 long_prompt=None) -> tuple[dict, int, int]:
     """Serve ``cfg`` (full width, random weights from seed 0) through
     ``serve()`` and the Executor over ``dev``: prompts of ``lengths``
-    tokens (the sixth gets the first one's prompt), 16 new tokens each, 4
+    tokens (the sixth gets the first one's prompt; for the audio stub,
+    codebook ids from ``make_audio_tokens``), 16 new tokens each, 4
     slots.  Every request completes, the repeated prompt gets the same
     tokens, every decode step is a graph replay, and a direct prefill (of
     request ``long_prompt``, default the second) and decode step give
@@ -441,6 +550,7 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     from repro_torch.launch.serve import serve
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill, reset_cache)
+    from repro_torch.models.frontends import make_audio_tokens
     from repro_torch.serving.graphs import DecodeGraphs
 
     max_new = 16
@@ -449,8 +559,13 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+    if cfg.frontend == "audio_stub":
+        gen = torch.Generator().manual_seed(0)
+        prompts = [make_audio_tokens(gen, 1, n, cfg.vocab_size)[0].numpy()
+                   for n in lengths]
+    else:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
     prompts[5] = prompts[0]                   # the same prompt, twice
 
     for name in COUNTED:
@@ -547,7 +662,8 @@ def _decode_step_split(torch, cfg, params, tok, caches, graphs, pos,
     """Where one batch-1 decode step's time goes, eager and replayed from
     its graph: the host's enqueue against enqueue plus the device
     finishing, beside the bytes bound of the step (every matmul weight,
-    the cache rows in use and the recurrent states read once).  The
+    the cache rows in use (MLA's latent and rope rows) and the recurrent
+    states read once).  The
     eager steps run on ``caches``, the replays on the graph's own caches,
     both from the position ``pos`` on."""
     from repro_torch.models import decode_step
@@ -578,12 +694,15 @@ def _decode_step_split(torch, cfg, params, tok, caches, graphs, pos,
     state_bytes = 0
     for group in caches:
         for sub in group.values():
-            if "k" in sub:       # (count, B, W, K, hd): the rows in use
-                k = sub["k"]
-                rows = min(length, k.shape[2])
-                state_bytes += 2 * k.shape[0] * rows * k[0, 0, 0].numel() \
-                    * k.element_size()
-            else:
+            # (count, B, W, ...) row caches: the rows in use of k and v,
+            # or of MLA's latent c_kv and k_rope
+            row_caches = [sub[key] for key in ("k", "v", "c_kv", "k_rope")
+                          if key in sub]
+            for t in row_caches:
+                rows = min(length, t.shape[2])
+                state_bytes += t.shape[0] * rows * t[0, 0, 0].numel() \
+                    * t.element_size()
+            if not row_caches:
                 state_bytes += _tree_bytes(sub)
     bound = (weights + state_bytes) / HBM_BYTES_S * 1e3
     print(f"decode step, batch 1, cache length {length}: eager host enqueue "
@@ -661,6 +780,26 @@ def main() -> int:
     # xlstm-1.3b: 42 mLSTM and 6 sLSTM blocks, f32, no kernel
     path(XLSTM, get_config(XLSTM), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 0, "decode_attention": 0,
+                       "rglru_scan": 0, "moe_gating": 0})
+    # deepseek-v2 at full width, 2 layers of 60 (the dense first layer and
+    # one MoE layer of 160 experts top-6 + 2 shared), f32 weights: MLA
+    # attends at q/k 192, v 128
+    dsv2 = get_config(DSV2)
+    dsv2 = dataclasses.replace(dsv2, groups=(
+        dataclasses.replace(dsv2.groups[0], count=1),
+        dataclasses.replace(dsv2.groups[1], count=1)))
+    path(DSV2, dsv2, [64, 512, 300, 137, 450, 64], 1024,
+         lambda p, s: {"flash_attention": 2 * p, "decode_attention": 2 * s,
+                       "rglru_scan": 0, "moe_gating": p + s})
+    # qwen2-vl-7b: 28 attention layers (M-RoPE, GQA 28/4), f32, text
+    # prompts as the reference's engine serves
+    path(QWEN2VL, get_config(QWEN2VL), [64, 512, 300, 137, 450, 64], 1024,
+         lambda p, s: {"flash_attention": 28 * p, "decode_attention": 28 * s,
+                       "rglru_scan": 0, "moe_gating": 0})
+    # musicgen-large: 48 attention layers (MHA, D 64), f32, prompts of
+    # stub EnCodec ids
+    path(MUSICGEN, get_config(MUSICGEN), [64, 512, 300, 137, 450, 64], 1024,
+         lambda p, s: {"flash_attention": 48 * p, "decode_attention": 48 * s,
                        "rglru_scan": 0, "moe_gating": 0})
 
     for name, row in chosen.items():

@@ -8,11 +8,14 @@
 // online softmax with f32 statistics.  Rows at or past `valid_len` are
 // never read.  A row with `valid_len == 0` gets the mean of V over all S
 // cache rows, which is what the TPU kernel's additive -1e30 mask gives.
+// The value head dim Dv may differ from the q/k head dim D, as the TPU
+// kernel's (MLA: D = 192, Dv = 128): the q·k dot runs over D, and the
+// accumulators, the merges and the output over Dv.
 //
 // What bounds it: every cache byte below valid_len is read once for about
 // 4·G operations per bf16 pair, far below the card's ~295 operations per
-// byte, so the bound is memory: 2·valid_len·K·D·bytes per row.  Reading
-// those bytes fast takes many loads in flight on many SMs, and batch-1
+// byte, so the bound is memory: valid_len·K·(D + Dv)·bytes per row.
+// Reading those bytes fast takes many loads in flight on many SMs, and batch-1
 // decode has few (batch row, kv head) pairs: recurrentgemma's MQA has
 // one.  So the cache rows of each (batch row, kv head, group of query
 // heads) are split over a thread-block cluster of up to 8 blocks
@@ -21,15 +24,16 @@
 // and the SM count, so that the grid fills the card; each block splits
 // its row's min(valid_len, S) rows evenly by blockIdx.x.  In a block of
 // 256 threads a row group of lanes takes one cache row at a time with
-// 16-byte loads (16 lanes x 8 elements cover D <= 128, a whole warp
-// D <= 256), keeps its query heads in registers and runs its own online
-// softmax.  Every load of a pass issues before any is used (a slot past
-// the split's end reloads its last row), and the head groups of one kv
-// head walk their rows from different offsets, so that they do not all
-// ask for one line at once: on the card, branchy loads and that crowding
-// each took a large share of the loop's time (PERF.md).  The row groups
-// merge through shared memory into the block's partial (m, l, acc[G, D])
-// in f32.  Then the cluster merges its blocks'
+// 16-byte loads (16 lanes x 8 elements cover max(D, Dv) <= 128, a whole
+// warp up to 256: MLA's D = 192 takes the whole warp, of which 16 lanes
+// hold V's 128 columns), keeps its query heads in registers and runs its
+// own online softmax.  Every load of a pass issues before any is used (a
+// slot past the split's end reloads its last row), and the head groups of
+// one kv head walk their rows from different offsets, so that they do not
+// all ask for one line at once: on the card, branchy loads and that
+// crowding each took a large share of the loop's time (PERF.md).  The row
+// groups merge through shared memory into the block's partial (m, l,
+// acc[G, Dv]) in f32.  Then the cluster merges its blocks'
 // partials through distributed shared memory, each block a slice of the
 // outputs, in split order 0, 1, ...: one launch per call, no scratch in
 // device memory, and the same bits from run to run.  A split past a
@@ -37,10 +41,10 @@
 // weight 0.  Fewer heads per block means more blocks, each reading the
 // kv head's rows again (from L2).
 //
-// Layout: q (B, H, D) and out (B, H, D) contiguous; k/v (B, S, K, D) with
-// the last dimension contiguous, the other strides given in elements and
-// all multiples of 8, base pointers 16-byte aligned.  D is a multiple of
-// 8, at most 256; any G = H / K.
+// Layout: q (B, H, D) and out (B, H, Dv) contiguous; k (B, S, K, D) and
+// v (B, S, K, Dv) with the last dimension contiguous, the other strides
+// given in elements and all multiples of 8, base pointers 16-byte
+// aligned.  D and Dv are multiples of 8, at most 256; any G = H / K.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +68,7 @@ struct Params {
   const void* v;
   const int* valid_len;
   void* out;
-  int H, K, S, D;
+  int H, K, S, D, Dv;
   int GB;  // query heads per block: group z takes heads [z·GB, z·GB + GB)
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -102,9 +106,9 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
   }
 }
 
-size_t smem_bytes(int maxg, int D) {
+size_t smem_bytes(int maxg, int Dv) {
   // per-warp partials, then the block's partial that the cluster reads
-  return sizeof(float) * (size_t(WARPS) + 1) * maxg * (size_t(D) + 2);
+  return sizeof(float) * (size_t(WARPS) + 1) * maxg * (size_t(Dv) + 2);
 }
 
 // MAXG: registers for query heads (>= GB); ROWL: lanes per cache row.
@@ -116,12 +120,12 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   constexpr int U = MAXG <= 2 ? 4 : (MAXG == 4 ? 2 : 1);
   constexpr int ROWS = THREADS / ROWL;  // row groups: one cache row each
   extern __shared__ float smem[];
-  const int D = p.D;
-  float* part_acc = smem;                         // [WARPS][MAXG][D]
-  float* part_m = part_acc + WARPS * MAXG * D;    // [WARPS][MAXG]
+  const int D = p.D, Dv = p.Dv;
+  float* part_acc = smem;                         // [WARPS][MAXG][Dv]
+  float* part_m = part_acc + WARPS * MAXG * Dv;   // [WARPS][MAXG]
   float* part_l = part_m + WARPS * MAXG;          // [WARPS][MAXG]
-  float* blk_acc = part_l + WARPS * MAXG;         // [MAXG][D]
-  float* blk_m = blk_acc + MAXG * D;              // [MAXG]
+  float* blk_acc = part_l + WARPS * MAXG;         // [MAXG][Dv]
+  float* blk_m = blk_acc + MAXG * Dv;             // [MAXG]
   float* blk_l = blk_m + MAXG;                    // [MAXG]
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -133,7 +137,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = threadIdx.x / ROWL;         // this row group's id
   const int c0 = (lane % ROWL) * 8;           // this lane's 8 elements
-  const bool active = c0 < D;
+  const bool active = c0 < D;                 // of q and k
+  const bool active_v = c0 < Dv;              // of v and the output
 
   const int vl = p.valid_len[b];
   const bool uniform = vl <= 0;  // nothing valid: mean of V, as on the TPU
@@ -167,10 +172,12 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   const int n_groups = gridDim.y / p.K;
   const int rot =
       (int)((long long)(blockIdx.y / p.K) * n_rows / n_groups);
-  // a lane past D reads the row's last 8 columns (its q is 0)
-  const int cl = min(c0, D - 8);
-  const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh + cl;
-  const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh + cl;
+  // a lane past D reads k's last 8 columns (its q is 0), and a lane past
+  // Dv v's last 8 (its accumulator is never stored)
+  const T* kbase = static_cast<const T*>(p.k) + b * p.k_sb + kh * p.k_sh +
+                   min(c0, D - 8);
+  const T* vbase = static_cast<const T*>(p.v) + b * p.v_sb + kh * p.v_sh +
+                   min(c0, Dv - 8);
   // the loop bound is uniform over the block: every lane reaches every
   // shuffle; a slot past r_end reloads the split's last row (every load
   // issues, none waits on a branch) and is skipped in the update
@@ -236,10 +243,10 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   if (lane < ROWL) {
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
-      if (active)
+      if (active_v)
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          part_acc[(warp * MAXG + g) * D + c0 + e] = acc[g][e];
+          part_acc[(warp * MAXG + g) * Dv + c0 + e] = acc[g][e];
       if (lane == 0) {
         part_m[warp * MAXG + g] = m[g];
         part_l[warp * MAXG + g] = l[g];
@@ -247,15 +254,15 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
     }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < Gb * D; t += THREADS) {
-    const int g = t / D, d = t - g * D;
+  for (int t = threadIdx.x; t < Gb * Dv; t += THREADS) {
+    const int g = t / Dv, d = t - g * Dv;
     float mt = NEG;
     for (int w = 0; w < WARPS; ++w) mt = fmaxf(mt, part_m[w * MAXG + g]);
     float lt = 0.f, at = 0.f;
     for (int w = 0; w < WARPS; ++w) {
       const float a = expf(part_m[w * MAXG + g] - mt);
       lt += part_l[w * MAXG + g] * a;
-      at += part_acc[(w * MAXG + g) * D + d] * a;
+      at += part_acc[(w * MAXG + g) * Dv + d] * a;
     }
     blk_acc[t] = at;
     if (d == 0) {
@@ -267,10 +274,10 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Params p) {
   // the cluster's splits, in order 0, 1, ...: this block takes every
   // n_splits-th block of THREADS outputs
   cluster.sync();
-  T* out = static_cast<T*>(p.out) + head0 * D;
-  for (int t = split * THREADS + threadIdx.x; t < Gb * D;
+  T* out = static_cast<T*>(p.out) + head0 * Dv;
+  for (int t = split * THREADS + threadIdx.x; t < Gb * Dv;
        t += n_splits * THREADS) {
-    const int g = t / D;
+    const int g = t / Dv;
     float mt = NEG;
     for (int r = 0; r < n_splits; ++r)
       mt = fmaxf(mt, *cluster.map_shared_rank(blk_m + g, r));
@@ -299,7 +306,7 @@ int sm_count() {
 
 template <typename T, int MAXG, int ROWL>
 int launch(const Params& p, int B, int splits, cudaStream_t stream) {
-  const size_t smem = smem_bytes(MAXG, p.D);
+  const size_t smem = smem_bytes(MAXG, p.Dv);
   auto kernel = decode_kernel<T, MAXG, ROWL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -332,7 +339,8 @@ int dispatch_heads(const Params& p, int B, int splits, cudaStream_t stream) {
 
 template <typename T>
 int dispatch(const Params& p, int B, int splits, cudaStream_t stream) {
-  if (p.D <= 128) return dispatch_heads<T, 16>(p, B, splits, stream);
+  if (p.D <= 128 && p.Dv <= 128)
+    return dispatch_heads<T, 16>(p, B, splits, stream);
   return dispatch_heads<T, 32>(p, B, splits, stream);
 }
 
@@ -342,11 +350,11 @@ int dispatch(const Params& p, int B, int splits, cudaStream_t stream) {
 // or -1 for arguments the kernel does not take.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const int* valid_len,
-    void* out, int dtype, int B, int H, int K, int S, int D, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, void* stream) {
-  if (D <= 0 || D > MAX_D || D % 8 || K <= 0 || H % K || B <= 0 ||
-      S <= 0 || B > 65535 || H > 65535)
+    void* out, int dtype, int B, int H, int K, int S, int D, int Dv,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, float scale, void* stream) {
+  if (D <= 0 || D > MAX_D || D % 8 || Dv <= 0 || Dv > MAX_D || Dv % 8 ||
+      K <= 0 || H % K || B <= 0 || S <= 0 || B > 65535 || H > 65535)
     return -1;
   const int G = H / K;
   // splits of the cache rows: at least MIN_SPLIT_ROWS each, at most a
@@ -373,6 +381,7 @@ extern "C" int decode_attention_fwd(
   p.K = K;
   p.S = S;
   p.D = D;
+  p.Dv = Dv;
   p.GB = GB;
   p.k_sb = k_sb;
   p.k_ss = k_ss;

@@ -7,13 +7,16 @@
 // with an f32 running max, denominator and accumulator, a top-left
 // aligned causal mask (q_pos >= k_pos), an optional sliding window
 // (q_pos - k_pos < window) and a kv_len tail mask.  Masked logits get an
-// additive -1e30, as in the TPU kernel.  Output in the input type.
+// additive -1e30, as in the TPU kernel.  Output in the input type.  The
+// value head dim Dv may differ from the q/k head dim D, as the TPU
+// kernel's (MLA: D = 192, Dv = 128): S = Q·Kᵀ runs over D, and V, the
+// accumulators and the output over Dv.
 //
-// What bounds it: causal attention does 2·S²·D·H operations on
-// 2·4·S·D·H bf16 bytes (q, k, v read once, out written once), S/4
-// operations per byte.  Below the card's ~295 operations per byte (bf16
-// tensor-core peak over HBM rate), that is up to S ≈ 1180, the bound is
-// bytes; past it, arithmetic on the tensor cores.
+// What bounds it: causal attention does S²·(D + Dv)·H operations on
+// 2·S·(2·D + 2·Dv)·H bf16 bytes (q, k, v read once, out written once),
+// about S/4 operations per byte.  Below the card's ~295 operations per
+// byte (bf16 tensor-core peak over HBM rate), that is up to S ≈ 1180, the
+// bound is bytes; past it, arithmetic on the tensor cores.
 //
 // Two kernels, chosen by dtype (not a fallback: a failed bf16 launch
 // raises):
@@ -31,13 +34,17 @@
 //   through the tensor cores into the same accumulator: the residual is
 //   at most 2^-18·P, so the result keeps the plain version's f32
 //   products (the Pallas kernel multiplies P in f32) within 2e-5 where
-//   one bf16 rounding of P would not.  D is padded in shared memory to
-//   64-column boxes that TMA zero-fills past D (D = 96 is two boxes);
-//   D = 256 holds 128 f32 accumulator registers per thread, which
-//   setmaxnreg (240 for the consumers, 24 for the producer) makes room
-//   for.  Shared memory per block: 1 KB of barriers + the Q tile (16 KB
-//   per box) + stages × (K + V) (8 KB per box each), 198,656 bytes at
-//   D = 256 (2 stages) with the 1 KB alignment slack.  kv tiles that no
+//   one bf16 rounding of P would not.  D and Dv are padded in shared
+//   memory to 64-column boxes that TMA zero-fills past them (D = 96 is
+//   two boxes): NC boxes for Q and K, NCV for V.  The template is
+//   instantiated for the (NC, NCV) pairs the served models use, (1, 1),
+//   (2, 2), (4, 4) and MLA's (3, 2); any other pair is refused.  Dv = 256
+//   holds 128 f32 accumulator registers per thread, which setmaxnreg (240
+//   for the consumers, 24 for the producer) makes room for.  Shared
+//   memory per block: 1 KB of barriers + the Q tile (16 KB per box) +
+//   stages × (K (8 KB per box) + V (8 KB per box)), 198,656 bytes at
+//   D = Dv = 256 (2 stages) and 215,040 at D = 192, Dv = 128 (4 stages)
+//   with the 1 KB alignment slack.  kv tiles that no
 //   row of the block can see are never loaded; a warpgroup skips the
 //   arithmetic of a tile none of its rows can see.  The tensor maps are
 //   built on the host from the wrapper's strides; cuTensorMapEncodeTiled
@@ -47,10 +54,11 @@
 //   q tile, q head, batch row).  It keeps the f32 path exact to ~1e-6,
 //   which TF32 tensor cores would not.
 //
-// Layout: q (B, Sq, H, D), k/v (B, Sk, K, D) with the last dimension
-// contiguous and the other strides given in elements (for bf16: multiples
-// of 8, base pointers 16-byte aligned, as TMA needs); out is a contiguous
-// (B, Sq, H, D).  D is a multiple of 8, at most 256.
+// Layout: q (B, Sq, H, D), k (B, Sk, K, D), v (B, Sk, K, Dv) with the
+// last dimension contiguous and the other strides given in elements (for
+// bf16: multiples of 8, base pointers 16-byte aligned, as TMA needs); out
+// is a contiguous (B, Sq, H, Dv).  D and Dv are multiples of 8, at most
+// 256.
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda symbol
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +74,7 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
-  int H, K, Sq, Sk, D;
+  int H, K, Sq, Sk, D, Dv;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -83,23 +91,24 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // kv rows per tile
 constexpr int THREADS = 256;  // 16 x 16 thread grid
 
-size_t smem_bytes(int D) {
+size_t smem_bytes(int D, int Dv) {
   const int ld = D + 1;  // odd row stride: K-tile reads are conflict-free
   return sizeof(float) *
-         (size_t(BQ) * ld + size_t(BK) * ld + size_t(BK) * D +
+         (size_t(BQ) * ld + size_t(BK) * ld + size_t(BK) * Dv +
           size_t(BQ) * (BK + 1) + 3 * BQ);
 }
 
-// NJ: output columns tx + 16 j, j < NJ, that each thread accumulates
+// NJ: output columns tx + 16 j (of Dv), j < NJ, that each thread
+// accumulates
 template <int NJ>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
-  const int D = p.D;
+  const int D = p.D, Dv = p.Dv;
   const int ld = D + 1;
   float* Qs = smem;                   // BQ x ld
   float* Ks = Qs + BQ * ld;           // BK x ld
-  float* Vs = Ks + BK * ld;           // BK x D
-  float* Ps = Vs + BK * D;            // BQ x (BK + 1): scores, then probs
+  float* Vs = Ks + BK * ld;           // BK x Dv
+  float* Ps = Vs + BK * Dv;           // BQ x (BK + 1): scores, then probs
   float* row_m = Ps + BQ * (BK + 1);  // running max
   float* row_l = row_m + BQ;          // running denominator
   float* row_a = row_l + BQ;          // this tile's rescale factor
@@ -129,7 +138,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   k_begin -= k_begin % BK;
 
-  const int nd = (D + 15) / 16;  // output columns per thread, <= NJ
+  const int nd = (Dv + 15) / 16;  // output columns per thread, <= NJ
   float acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -140,9 +149,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     __syncthreads();  // previous tile fully consumed; Q tile and stats set
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, c = i - r * D, s = k0 + r;
-      const bool ok = s < p.Sk;
-      Ks[r * ld + c] = ok ? k[s * p.k_ss + c] : 0.f;
-      Vs[r * D + c] = ok ? v[s * p.v_ss + c] : 0.f;
+      Ks[r * ld + c] = s < p.Sk ? k[s * p.k_ss + c] : 0.f;
+    }
+    for (int i = tid; i < BK * Dv; i += THREADS) {
+      const int r = i / Dv, c = i - r * Dv, s = k0 + r;
+      Vs[r * Dv + c] = s < p.Sk ? v[s * p.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -220,8 +231,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int dc = tx + 16 * j;
-        if (j < nd && dc < D) {
-          const float vv = Vs[c * D + dc];
+        if (j < nd && dc < Dv) {
+          const float vv = Vs[c * Dv + dc];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
         }
@@ -237,18 +248,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     if (s >= p.Sq) continue;
     const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
     float* orow =
-        out + ((long long)(b) * p.Sq + s) * p.H * D + (long long)h * D;
+        out + ((long long)(b) * p.Sq + s) * p.H * Dv + (long long)h * Dv;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int dc = tx + 16 * j;
-      if (j < nd && dc < D) orow[dc] = acc[i][j] * inv;
+      if (j < nd && dc < Dv) orow[dc] = acc[i][j] * inv;
     }
   }
 }
 
 template <int NJ>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.D);
+  const size_t smem = smem_bytes(p.D, p.Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
@@ -259,7 +270,7 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 }
 
 int run(const Params& p, int B, cudaStream_t stream) {
-  if (p.D <= 128) return launch<8>(p, B, stream);
+  if (p.Dv <= 128) return launch<8>(p, B, stream);
   return launch<16>(p, B, stream);
 }
 
@@ -278,15 +289,19 @@ constexpr int BOX = 64;       // bf16 columns per 128-byte swizzled box
 constexpr int ROW_BYTES = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// NC boxes of 64 columns: the Q tile, one K or V tile, and the stages
-template <int NC>
+// NC boxes of 64 columns for Q and K, NCV for V: the Q tile, one K and
+// one V tile, and the stages
+template <int NC, int NCV>
 struct Layout {
   static constexpr int Q_BYTES = NC * BQ * ROW_BYTES;
-  static constexpr int KV_BYTES = NC * BK * ROW_BYTES;
-  static constexpr int STAGES_FIT = (220 * 1024 - Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int K_BYTES = NC * BK * ROW_BYTES;
+  static constexpr int V_BYTES = NCV * BK * ROW_BYTES;
+  static constexpr int STAGES_FIT =
+      (220 * 1024 - Q_BYTES) / (K_BYTES + V_BYTES);
   static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
   // alignment slack + barriers + Q + the K and V rings
-  static constexpr int SMEM = 1024 + 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM =
+      1024 + 1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES);
   static_assert(STAGES >= 2, "the ring needs two stages");
 };
 
@@ -413,12 +428,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int NC>
+template <int NC, int NCV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, Params p) {
-  using L = Layout<NC>;
+  using L = Layout<NC, NCV>;
   constexpr int ST = L::STAGES;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle repeats every 1024 bytes: tiles start on a multiple
@@ -429,7 +444,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t empty = base + 8 * (1 + 2 * ST);  // [ST]
   const uint32_t sq = base + 1024;
   const uint32_t sk = sq + L::Q_BYTES;             // [ST] tiles
-  const uint32_t sv = sk + ST * L::KV_BYTES;       // [ST] tiles
+  const uint32_t sv = sk + ST * L::K_BYTES;        // [ST] tiles
 
   // softmax scale · log2(e): exp(x) = exp2(x · log2 e)
   const float scale_log2 = p.scale * LOG2E;
@@ -468,13 +483,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = i % ST;
         if (i >= ST) mbar_wait(empty + 8 * s, ((i / ST) - 1) & 1);
         const int k0 = k_begin + i * BK;
-        const uint32_t ks = sk + s * L::KV_BYTES, vs = sv + s * L::KV_BYTES;
-        mbar_expect_tx(k_full + 8 * s, L::KV_BYTES);
+        const uint32_t ks = sk + s * L::K_BYTES, vs = sv + s * L::V_BYTES;
+        mbar_expect_tx(k_full + 8 * s, L::K_BYTES);
         for (int c = 0; c < NC; ++c)
           tma_load(ks + c * BK * ROW_BYTES, &tk, k_full + 8 * s, c * BOX, kvh,
                    k0, b);
-        mbar_expect_tx(v_full + 8 * s, L::KV_BYTES);
-        for (int c = 0; c < NC; ++c)
+        mbar_expect_tx(v_full + 8 * s, L::V_BYTES);
+        for (int c = 0; c < NCV; ++c)
           tma_load(vs + c * BK * ROW_BYTES, &tv, v_full + 8 * s, c * BOX, kvh,
                    k0, b);
       }
@@ -491,9 +506,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     const bool live = qa < p.Sq;
     const uint32_t q_tile = sq + wg * 64 * ROW_BYTES;
 
-    float o[NC][32];
+    float o[NCV][32];
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NCV; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
     float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
@@ -503,7 +518,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int s = i % ST;
       const uint32_t ph = (i / ST) & 1;
       const int k0 = k_begin + i * BK;
-      const uint32_t ks = sk + s * L::KV_BYTES, vs = sv + s * L::KV_BYTES;
+      const uint32_t ks = sk + s * L::K_BYTES, vs = sv + s * L::V_BYTES;
       // a tile that none of this warpgroup's rows can see: skip the
       // arithmetic, but wait for it so the empty arrival counts for it
       const bool skip = !live || (p.causal && k0 > qb) ||
@@ -595,7 +610,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         // O's rows times their rescale factors, unless no max moved
         if (__any_sync(0xffffffffu, al0 != 1.f || al1 != 1.f)) {
 #pragma unroll
-          for (int c = 0; c < NC; ++c) {
+          for (int c = 0; c < NCV; ++c) {
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
               o[c][4 * j] *= al0;
@@ -623,7 +638,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         mbar_wait(v_full + 8 * s, ph);
         wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
+        for (int c = 0; c < NCV; ++c) {
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
             const uint64_t dv =
@@ -636,7 +651,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
-        for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+        for (int c = 0; c < NCV; ++c) fence_regs(o[c]);
       } else {
         mbar_wait(v_full + 8 * s, ph);
       }
@@ -652,16 +667,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
     const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
-    const long long row_stride = (long long)p.H * p.D;
+    const long long row_stride = (long long)p.H * p.Dv;
     __nv_bfloat16* out0 =
-        out_ + ((long long)b * p.Sq + r0) * row_stride + (long long)h * p.D;
+        out_ + ((long long)b * p.Sq + r0) * row_stride + (long long)h * p.Dv;
     __nv_bfloat16* out1 = out0 + 8 * row_stride;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    for (int c = 0; c < NCV; ++c) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = c * BOX + 8 * j + 2 * t4;
-        if (col >= p.D) continue;
+        if (col >= p.Dv) continue;
         if (r0 < p.Sq)
           *reinterpret_cast<__nv_bfloat162*>(out0 + col) =
               __floats2bfloat162_rn(o[c][4 * j] * inv0,
@@ -728,36 +743,38 @@ bool tma_strides(const void* ptr, int batch, int seq, int heads, int D,
          *ss % 8 == 0 && *sh % 8 == 0 && *sb > 0 && *ss > 0 && *sh > 0;
 }
 
-template <int NC>
+template <int NC, int NCV>
 int launch(const Params& p, int B, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, p.q, B, p.Sq, p.H, p.D, p.q_sb, p.q_ss, p.q_sh, BQ);
   if (!err)
     err = make_map(&tk, p.k, B, p.Sk, p.K, p.D, p.k_sb, p.k_ss, p.k_sh, BK);
   if (!err)
-    err = make_map(&tv, p.v, B, p.Sk, p.K, p.D, p.v_sb, p.v_ss, p.v_sh, BK);
+    err = make_map(&tv, p.v, B, p.Sk, p.K, p.Dv, p.v_sb, p.v_ss, p.v_sh, BK);
   if (err) return err;
-  const int smem = Layout<NC>::SMEM;
+  const int smem = Layout<NC, NCV>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_tc_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_tc_kernel<NC, NCV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return int(e);
   dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_tc_kernel<NC><<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);
+  flash_tc_kernel<NC, NCV><<<grid, THREADS, smem, stream>>>(tq, tk, tv, p);
   return int(cudaGetLastError());
 }
 
 int run(Params p, int B, cudaStream_t stream) {
   if (!tma_strides(p.q, B, p.Sq, p.H, p.D, &p.q_sb, &p.q_ss, &p.q_sh) ||
       !tma_strides(p.k, B, p.Sk, p.K, p.D, &p.k_sb, &p.k_ss, &p.k_sh) ||
-      !tma_strides(p.v, B, p.Sk, p.K, p.D, &p.v_sb, &p.v_ss, &p.v_sh) ||
+      !tma_strides(p.v, B, p.Sk, p.K, p.Dv, &p.v_sb, &p.v_ss, &p.v_sh) ||
       reinterpret_cast<uintptr_t>(p.out) % 16)
     return -1;
-  switch ((p.D + BOX - 1) / BOX) {
-    case 1: return launch<1>(p, B, stream);
-    case 2: return launch<2>(p, B, stream);
-    case 3: return launch<3>(p, B, stream);
-    default: return launch<4>(p, B, stream);
-  }
+  // (Q/K boxes, V boxes): the pairs the served models use
+  const int nc = (p.D + BOX - 1) / BOX, ncv = (p.Dv + BOX - 1) / BOX;
+  if (nc == 1 && ncv == 1) return launch<1, 1>(p, B, stream);
+  if (nc == 2 && ncv == 2) return launch<2, 2>(p, B, stream);
+  if (nc == 3 && ncv == 2) return launch<3, 2>(p, B, stream);
+  if (nc == 4 && ncv == 4) return launch<4, 4>(p, B, stream);
+  return -1;
 }
 
 }  // namespace tc
@@ -766,15 +783,17 @@ int run(Params p, int B, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0 once launched, a
 // cudaError_t, 1000 + a CUresult if a tensor map could not be built, or
-// -1 for arguments the kernel does not take.
+// -1 for arguments the kernel does not take (for bf16, a (D, Dv) box pair
+// it is not instantiated for).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
-    int H, int K, int Sq, int Sk, int D, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, int causal, int window,
-    float scale, void* stream) {
-  if (D <= 0 || D > MAX_D || D % 8 || K <= 0 || H % K || B <= 0 || Sq <= 0 ||
-      Sk <= 0 || B > 65535 || H > 65535)
+    int H, int K, int Sq, int Sk, int D, int Dv, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    int causal, int window, float scale, void* stream) {
+  if (D <= 0 || D > MAX_D || D % 8 || Dv <= 0 || Dv > MAX_D || Dv % 8 ||
+      K <= 0 || H % K || B <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 ||
+      H > 65535)
     return -1;
   Params p;
   p.q = q;
@@ -786,6 +805,7 @@ extern "C" int flash_attention_fwd(
   p.Sq = Sq;
   p.Sk = Sk;
   p.D = D;
+  p.Dv = Dv;
   p.q_sb = q_sb;
   p.q_ss = q_ss;
   p.q_sh = q_sh;

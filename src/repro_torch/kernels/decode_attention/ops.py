@@ -18,7 +18,7 @@ __all__ = ["decode_attention", "decode_attention_plain"]
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 5 + [_I] * 6 + [_L] * 6 + [ctypes.c_float, _P]
+_ARGTYPES = [_P] * 5 + [_I] * 7 + [_L] * 6 + [ctypes.c_float, _P]
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -28,8 +28,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or past ``valid_len`` get an additive -1e30, so a row with
     ``valid_len == 0`` averages V over the whole cache.
 
-    q: (B, H, D); k, v: (B, S, K, D); valid_len: (B,).  Returns
-    (B, H, Dv) in q.dtype."""
+    q: (B, H, D); k: (B, S, K, D); v: (B, S, K, Dv); valid_len: (B,).
+    Returns (B, H, Dv) in q.dtype."""
     B, H, D = q.shape
     S, K, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = H // K
@@ -47,8 +47,9 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: torch.Tensor, *,
                      scale: float | None = None) -> torch.Tensor:
-    """q: (B, H, D) one token per sequence; k/v: (B, S, K, D) cache;
-    valid_len: (B,) int32 rows of the cache each sequence attends to.
+    """q: (B, H, D) one token per sequence; k: (B, S, K, D) and v: (B,
+    S, K, Dv) cache, Dv possibly not D (MLA); valid_len: (B,) int32 rows
+    of the cache each sequence attends to.
 
     On a CUDA tensor: launches the kernel on the current stream (the
     executor's compute stream) and counts the launch in
@@ -57,8 +58,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     B, H, D = q.shape
     _, S, K, Dv = v.shape
-    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or H % K
-            or tuple(valid_len.shape) != (B,)):
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D
+            or H % K or tuple(valid_len.shape) != (B,)):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, valid_len "
                          f"{tuple(valid_len.shape)} do not fit")
@@ -75,9 +76,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"bfloat16 for all three")
     if valid_len.dtype != torch.int32:
         raise ValueError("decode_attention: valid_len must be int32")
-    if D % 8 or D > 256:
-        raise ValueError(f"decode_attention: head dim {D} is not a multiple "
-                         f"of 8 up to 256")
+    if D % 8 or D > 256 or Dv % 8 or Dv > 256:
+        raise ValueError(f"decode_attention: head dims {D}, {Dv} are not "
+                         f"multiples of 8 up to 256")
     if not (q.is_contiguous() and valid_len.is_contiguous()):
         raise ValueError("decode_attention: q and valid_len must be "
                          "contiguous")
@@ -90,7 +91,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, H, Dv), dtype=q.dtype, device=q.device)
     fn = function("decode_attention", "decode_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_len.data_ptr(),
-             out.data_ptr(), _DTYPES[q.dtype], B, H, K, S, D,
+             out.data_ptr(), _DTYPES[q.dtype], B, H, K, S, D, Dv,
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2), scale,
              torch.cuda.current_stream(q.device).cuda_stream)

@@ -20,8 +20,12 @@ __all__ = ["flash_attention", "flash_attention_plain"]
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 9
+_ARGTYPES = ([_P] * 4 + [_I] * 8 + [_L] * 9
              + [_I, _I, ctypes.c_float, _P])
+#: the (q/k, v) counts of 64-column boxes the bf16 kernel is built for
+#: (``csrc/flash_attention.cu``, ``tc::run``): D 8-64, 65-128 and 129-256
+#: with Dv = D, and MLA's D 192 with Dv 128
+_TC_BOXES = {(1, 1), (2, 2), (4, 4), (3, 2)}
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
@@ -38,8 +42,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense f32 attention with the kernel's masking: an additive -1e30
     for keys hidden by the top-left causal mask or the window.
 
-    q: (B, Sq, H, D); k, v: (B, Sk, K, D), H a multiple of K.  Returns
-    (B, Sq, H, Dv) in q.dtype."""
+    q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv), H a multiple
+    of K.  Returns (B, Sq, H, Dv) in q.dtype."""
     B, Sq, H, D = q.shape
     Sk, K, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = H // K
@@ -61,7 +65,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
-    """q: (B, Sq, H, D); k, v: (B, Sk, K, D) — model layout.
+    """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv) — model
+    layout.  The value head dim Dv may differ from D (MLA).
 
     On a CUDA tensor: launches the kernel on the current stream (the
     executor's compute stream) and counts the launch in
@@ -70,7 +75,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     B, Sq, H, D = q.shape
     _, Sk, K, Dv = v.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or H % K:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D
+            or H % K):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if window is not None and window <= 0:
@@ -87,19 +93,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype}; the kernel takes one of float32, "
                          f"bfloat16 for all three")
-    if D % 8 or D > 256:
-        raise ValueError(f"flash_attention: head dim {D} is not a multiple "
-                         f"of 8 up to 256")
+    if D % 8 or D > 256 or Dv % 8 or Dv > 256:
+        raise ValueError(f"flash_attention: head dims {D}, {Dv} are not "
+                         f"multiples of 8 up to 256")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
     if q.dtype == torch.bfloat16 and not all(map(_tma_ready, (q, k, v))):
         raise ValueError("flash_attention: bf16 tensors are read with TMA: "
                          "strides in multiples of 8 elements and a 16-byte "
                          "aligned base")
+    if q.dtype == torch.bfloat16 and (-(-D // 64), -(-Dv // 64)) \
+            not in _TC_BOXES:
+        raise ValueError(f"flash_attention: the bf16 kernel is not built "
+                         f"for head dims D {D}, Dv {Dv}")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     fn = function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], B, H, K, Sq, Sk, D,
+             _DTYPES[q.dtype], B, H, K, Sq, Sk, D, Dv,
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),

@@ -1,7 +1,7 @@
-"""Model substrate: config-driven decoder (attention, RG-LRU, MoE and
-xLSTM blocks) with the hand-written kernels, and the weight conversion
-from the JAX reference."""
-from . import convert, layers, moe, recurrent, transformer, xlstm
+"""Model substrate: config-driven decoder (attention with RoPE or M-RoPE,
+MLA, RG-LRU, MoE and xLSTM blocks) with the hand-written kernels, the
+stub frontends, and the weight conversion from the JAX reference."""
+from . import convert, frontends, layers, moe, recurrent, transformer, xlstm
 from .convert import params_from_numpy
 from .transformer import (
     cast_params,
@@ -14,7 +14,8 @@ from .transformer import (
 )
 
 __all__ = [
-    "convert", "layers", "moe", "recurrent", "transformer", "xlstm",
+    "convert", "frontends", "layers", "moe", "recurrent", "transformer",
+    "xlstm",
     "params_from_numpy", "cast_params", "decode_step", "forward",
     "init_cache", "init_params", "prefill", "reset_cache",
 ]

@@ -1,5 +1,6 @@
-"""Shared model layers: norms, RoPE, GQA attention (global, and local
-over a ring-buffer cache), SwiGLU.
+"""Shared model layers: norms, RoPE / M-RoPE, GQA attention (global, and
+local over a ring-buffer cache), MLA (multi-head latent attention),
+SwiGLU.
 
 Attention calls the hand-written kernels (``repro_torch.kernels``):
 flash attention for a prompt, decode attention for one token against a
@@ -59,15 +60,32 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                m_rope_sections: tuple[int, ...] = ()) -> torch.Tensor:
-    """Rotate ``x`` (B, S, H, D) by ``positions`` (B, S): split-half
-    rotation (the two halves of the head dim pair up), not interleaved.
-    M-RoPE (Qwen2-VL) waits for the slice that ports its family."""
-    if m_rope_sections:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (vision-language slice)")
+    """Rotate ``x`` (B, S, H, D) by ``positions``: split-half rotation
+    (the two halves of the head dim pair up), not interleaved.
+
+    ``positions``: (B, S) for RoPE, or (3, B, S) for M-RoPE (Qwen2-VL),
+    where the D/2 frequency pairs fall into ``m_rope_sections`` (t, h, w)
+    and each section turns by its own coordinate.  (3, B, S) positions on
+    the 1-D path take the first coordinate, as the reference's."""
     D = x.shape[-1]
     freqs = rope_freqs(D, theta, x.device)                     # (D/2,)
-    angles = positions[..., None].float() * freqs               # (B,S,D/2)
+    if m_rope_sections:
+        if positions.dim() != 3 or sum(m_rope_sections) != D // 2:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions and "
+                             f"sections summing to {D // 2}; got "
+                             f"{tuple(positions.shape)}, {m_rope_sections}")
+        # each section's pairs by its coordinate: slices, no index tensor,
+        # so a captured decode step copies nothing from the host
+        parts, off = [], 0
+        for coord, n in enumerate(m_rope_sections):
+            parts.append(positions[coord][..., None].float()
+                         * freqs[off:off + n])
+            off += n
+        angles = torch.cat(parts, dim=-1)                       # (B,S,D/2)
+    else:
+        if positions.dim() == 3:
+            positions = positions[0]
+        angles = positions[..., None].float() * freqs           # (B,S,D/2)
     cos = torch.cos(angles)[..., None, :]                       # (B,S,1,D/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -81,7 +99,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               scale: float | None = None,
               valid_len: torch.Tensor | None = None) -> torch.Tensor:
-    """Grouped-query attention.  q: (B, Sq, H, D); k, v: (B, Sk, K, D).
+    """Grouped-query attention.  q: (B, Sq, H, D); k: (B, Sk, K, D); v:
+    (B, Sk, K, Dv).
 
     One query token (decode) goes to the decode-attention kernel: rows
     below ``valid_len`` are attended (default 1: a lone token without a
@@ -205,6 +224,110 @@ def init_attn_cache(cfg, batch: int, max_len: int, dtype, device,
                          device=device),
         "v": torch.zeros((count, batch, max_len, K, hd), dtype=dtype,
                          device=device),
+        "length": 0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2 §2.1)
+# ---------------------------------------------------------------------------
+def init_mla(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
+    """MLA weights stacked over ``count`` layers, with the reference's
+    keys: the kv down-projection ``w_dkv`` and shared rope key
+    ``w_krope``, the up-projections ``w_uk``/``w_uv``, ``wo``, and q
+    through ``w_dq``/``w_uq`` (q_lora_rank > 0) or ``wq``."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    dt = getattr(torch, cfg.param_dtype)
+
+    def w(shape):
+        return dense_init(gen, shape, dt, device, count=count)
+
+    p = {
+        "w_dkv": w((d, m.kv_lora_rank)),
+        "w_krope": w((d, m.qk_rope_dim)),
+        "w_uk": w((m.kv_lora_rank, H * m.qk_nope_dim)),
+        "w_uv": w((m.kv_lora_rank, H * m.v_head_dim)),
+        "wo": w((H * m.v_head_dim, d)),
+    }
+    if m.q_lora_rank:
+        p["w_dq"] = w((d, m.q_lora_rank))
+        p["w_uq"] = w((m.q_lora_rank, H * qd))
+    else:
+        p["wq"] = w((d, H * qd))
+    return p
+
+
+def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
+    """Latent-KV attention.  x: (B, S, d).  cache: dict(c_kv, k_rope,
+    length) of one layer, or None.  Returns (out, new_cache).
+
+    The cache holds the latent ``c_kv`` (rank per token) and the shared
+    rope key ``k_rope``, written IN PLACE as in :func:`attn_forward`.
+    Keys and values are up-projected from the latent rows on every call,
+    as the reference does: a fresh prefill reads back its own rows (in the
+    cache dtype), and a decode step (which takes ``step``, its cache row
+    and ``valid_len`` as device tensors) writes row ``pos`` and
+    up-projects all max_len rows, so its shapes are static and the
+    kernel masks the rows past ``valid_len``.  q/k heads are nope + rope
+    wide (192 on deepseek-v2) and v heads ``v_head_dim`` (128): the
+    kernels take Dv != D."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    cdt = getattr(torch, cfg.compute_dtype)
+    if m.q_lora_rank:
+        q = (x @ p["w_dq"].to(cdt)) @ p["w_uq"].to(cdt)
+    else:
+        q = x @ p["wq"].to(cdt)
+    q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = x @ p["w_dkv"].to(cdt)                                # (B,S,rank)
+    k_rope = apply_rope((x @ p["w_krope"].to(cdt))[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0]     # (B,S,rope)
+    valid_len = new_cache = None
+    if cache is None:
+        c_all, kr_all = c_kv, k_rope
+    else:
+        length = cache["length"]
+        c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
+        if S == 1:
+            row, valid_len = step
+            c_cache.index_copy_(1, row, c_kv.to(c_cache.dtype))
+            kr_cache.index_copy_(1, row, k_rope.to(kr_cache.dtype))
+            c_all, kr_all = c_cache.to(cdt), kr_cache.to(cdt)
+        elif length != 0:
+            raise NotImplementedError(
+                "chunked prefill (a prompt at cache offset > 0) is not "
+                "ported yet; see ROADMAP.md")
+        else:
+            c_cache[:, :S] = c_kv.to(c_cache.dtype)
+            kr_cache[:, :S] = k_rope.to(kr_cache.dtype)
+            c_all = c_cache[:, :S].to(cdt)
+            kr_all = kr_cache[:, :S].to(cdt)
+        new_cache = {"c_kv": c_cache, "k_rope": kr_cache, "length": length + S}
+    L = c_all.shape[1]
+    k_nope = (c_all @ p["w_uk"].to(cdt)).reshape(B, L, H, m.qk_nope_dim)
+    v = (c_all @ p["w_uv"].to(cdt)).reshape(B, L, H, m.v_head_dim)
+    k = torch.cat([k_nope, kr_all[:, :, None, :].expand(B, L, H, -1)],
+                  dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    out = attention(q, k, v, causal=True, scale=scale, valid_len=valid_len)
+    out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"].to(cdt)
+    return out, new_cache
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype, device,
+                   count: int = 1) -> Params:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((count, batch, max_len, m.kv_lora_rank),
+                            dtype=dtype, device=device),
+        "k_rope": torch.zeros((count, batch, max_len, m.qk_rope_dim),
+                              dtype=dtype, device=device),
         "length": 0,
     }
 

@@ -6,10 +6,11 @@ times it repeats.  Parameters keep the JAX reference's pytree layout
 (``repro.models.transformer``): every weight of a group is stacked over
 its ``count`` axis, and the reference's ``lax.scan`` over that axis
 becomes a Python loop over the super-blocks, each running its pattern's
-sub-layers in order.  Ported mixers: ``attn``, ``attn_local`` (ring
-cache), ``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``, ``moe`` and
-``none``.  MLA, the stub frontends and M-RoPE raise
-``NotImplementedError`` naming the slice that ports them.
+sub-layers in order.  Mixers: ``attn`` (with M-RoPE where the config
+names sections), ``attn_local`` (ring cache), ``mla`` (latent cache),
+``rglru``, ``mlstm`` and ``slstm``; FFNs: ``dense``, ``moe`` and
+``none``.  A stub frontend's embeddings (``models.frontends``) go in as
+``forward(extra_embeds=...)``.
 
 A decode step takes its cache position as a device tensor (``pos``):
 every cache row it writes, its attention mask and its RoPE positions
@@ -32,37 +33,23 @@ from . import xlstm as X
 Params = dict[str, Any]
 
 #: weights the reference casts to the compute dtype at their use
-#: (``x @ W.astype(cdt)``; the conv taps and bias likewise) and the
-#: embedding table: the leaves :func:`cast_params` casts.  The RG-LRU
-#: gates ``w_a``/``w_i``, ``lam``, the MoE ``router``, the mLSTM gates
-#: ``w_i``/``w_f``, the sLSTM recurrence ``r`` and the f32 biases stay as
-#: they are: the reference reads them in f32
+#: (``x @ W.astype(cdt)``; the conv taps and bias likewise; MLA's down-
+#: and up-projections) and the embedding table: the leaves
+#: :func:`cast_params` casts.  The RG-LRU gates ``w_a``/``w_i``, ``lam``,
+#: the MoE ``router``, the mLSTM gates ``w_i``/``w_f``, the sLSTM
+#: recurrence ``r`` and the f32 biases stay as they are: the reference
+#: reads them in f32
 _MATMUL_LEAVES = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo",
                             "w_gate", "w_up", "w_down", "w_x", "w_out",
                             "conv_w", "conv_b", "w_q", "w_k", "w_v",
-                            "w_in"})
+                            "w_in", "w_dq", "w_uq", "w_dkv", "w_krope",
+                            "w_uk", "w_uv"})
 
-_MIXERS = ("attn", "attn_local", "rglru", "mlstm", "slstm")
-_FFNS = ("dense", "moe", "none")
-_LATER = {"mla": "the MLA slice, with deepseek-v2"}
 #: the recurrent mixers: forward(cfg, p, x, state) -> (out, new state)
 _RECURRENT = {"rglru": R.rglru_forward, "mlstm": X.mlstm_forward,
               "slstm": X.slstm_forward}
 #: what :func:`init_cache` fills a state with where it is not zero
 _STATE_FILLS = {"mlstm": {"m": float("-inf")}, "slstm": {"n": 1.0}}
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for g in cfg.groups:
-        for i, mixer in enumerate(g.pattern):
-            for part, ported in ((mixer, _MIXERS), (g.ffn_of(i), _FFNS)):
-                if part not in ported:
-                    raise NotImplementedError(
-                        f"{cfg.arch_id}: {part!r} blocks are not ported yet "
-                        f"({_LATER.get(part, 'a later slice')})")
-    if cfg.frontend != "none" or cfg.m_rope_sections:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: stub frontends and M-RoPE are not ported yet")
 
 
 def _device(device) -> torch.device:
@@ -82,6 +69,8 @@ def _init_mixer(cfg, mixer: str, gen, device, count: int) -> Params:
     if mixer in ("attn", "attn_local"):
         return L.init_attn(cfg, gen, device, count,
                            local=(mixer == "attn_local"))
+    if mixer == "mla":
+        return L.init_mla(cfg, gen, device, count)
     if mixer == "rglru":
         return R.init_rglru_block(cfg, gen, device, count)
     if mixer == "mlstm":
@@ -107,7 +96,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None = None,
     and ``ffn`` only where the sub-layer has an FFN); the numbers differ
     from ``jax.random``'s — carry the reference's over with
     :func:`repro_torch.models.convert.params_from_numpy`."""
-    _check_ported(cfg)
     device = _device(device)
     if gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
@@ -167,6 +155,8 @@ def _init_block_cache(cfg, mixer: str, batch: int, max_len: int, dtype,
     if mixer == "attn_local":
         w = min(max_len, cfg.rec.local_window)
         return L.init_attn_cache(cfg, batch, w, dtype, device, count)
+    if mixer == "mla":
+        return L.init_mla_cache(cfg, batch, max_len, dtype, device, count)
     if mixer == "rglru":
         return R.init_rglru_state(cfg, batch, dtype, device, count)
     if mixer == "mlstm":
@@ -181,10 +171,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Decode caches mirroring the group structure, stacked over each
     group's ``count``: per attention sub-layer ``k``/``v`` and a host-int
     ``length`` (a local-attention layer holds a ring of min(max_len,
-    local_window) rows), per RG-LRU sub-layer its ``conv`` tail and f32
-    carry ``h``, per mLSTM its f32 ``C``/``n``/``m`` and per sLSTM its
-    f32 ``h``/``c``/``n``/``m`` (no ``length``, as the reference's)."""
-    _check_ported(cfg)
+    local_window) rows), per MLA sub-layer the latent ``c_kv``, the rope
+    key ``k_rope`` and ``length``, per RG-LRU sub-layer its ``conv`` tail
+    and f32 carry ``h``, per mLSTM its f32 ``C``/``n``/``m`` and per sLSTM
+    its f32 ``h``/``c``/``n``/``m`` (no ``length``, as the reference's)."""
     device = _device(device)
     return [{f"sub{i}": _init_block_cache(cfg, mixer, batch, max_len, dtype,
                                           device, g.count)
@@ -231,6 +221,9 @@ def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
         if cache is not None:
             for key, t in state.items():
                 cache[key].copy_(t)
+    elif mixer == "mla":
+        step = None if cache is None else steps.get(cache["c_kv"].shape[1])
+        h, _ = L.mla_forward(cfg, p["mixer"], h, positions, cache, step=step)
     else:
         step = None if cache is None else steps.get(cache["k"].shape[1])
         h, _ = L.attn_forward(cfg, p["mixer"], h, positions, cache,
@@ -274,50 +267,65 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
 
 
 def _decode_steps(caches, pos, batch: int) -> dict:
-    """The decode step's cache row and mask per attention cache size W,
-    computed on the device from ``pos`` (the cache position, (1,) int64):
-    row ``pos % W`` (a global cache has W = max_len > pos; a ring writes
-    over its oldest row) and ``valid_len`` = min(pos + 1, W) per
-    sequence, int32."""
+    """The decode step's cache row and mask per attention cache size W
+    (a k/v or an MLA latent cache), computed on the device from ``pos``
+    (the cache position, (1,) int64): row ``pos % W`` (a global cache has
+    W = max_len > pos; a ring writes over its oldest row) and
+    ``valid_len`` = min(pos + 1, W) per sequence, int32."""
     steps = {}
     for gc in caches:
         for sub in gc.values():
-            if "k" in sub:
-                W = sub["k"].shape[2]
+            rows = sub.get("k", sub.get("c_kv"))
+            if rows is not None:
+                W = rows.shape[2]
                 if W not in steps:
                     valid = torch.clamp(pos + 1, max=W).to(torch.int32)
                     steps[W] = (pos % W, valid.repeat(batch))
     return steps
 
 
-def forward(cfg: ModelConfig, params: Params, tokens, *, caches=None,
+def forward(cfg: ModelConfig, params: Params, tokens=None, *,
+            extra_embeds=None, caches=None, positions=None,
             logits_slice: bool = False, pos=None, aux: bool = False):
     """Run the decoder.
 
-    tokens: (B, S) int ids.  caches: from :func:`init_cache` (inference;
-    updated in place) or None.  logits_slice: return logits for the LAST
-    position only (decode).  pos: for one token with caches, its cache
-    position as a (1,) int64 device tensor (default: made from the
-    caches' host length).  aux: also return the MoE load-balance loss
-    summed over layers, as the reference's third result.
+    tokens: (B, S) int ids, or None for embeddings alone.  extra_embeds:
+    (B, P, d) stub-frontend embeddings prepended to the token embeddings
+    (cast to the compute dtype).  caches: from :func:`init_cache`
+    (inference; updated in place) or None.  positions: explicit RoPE
+    positions, (B, S) or (3, B, S) under M-RoPE (default: the cache
+    offset plus arange, broadcast to the three M-RoPE coordinates).
+    logits_slice: return logits for the LAST position only (decode).
+    pos: for one token with caches, its cache position as a (1,) int64
+    device tensor (default: made from the caches' host length); the
+    default positions come from it.  aux: also return the MoE
+    load-balance loss summed over layers, as the reference's third
+    result.
 
     Returns (logits, new_caches), and the aux when asked for.
     """
-    _check_ported(cfg)
     cdt = getattr(torch, cfg.compute_dtype)
-    x = params["embed"][tokens].to(cdt)
+    parts = []
+    if extra_embeds is not None:
+        parts.append(extra_embeds.to(cdt))
+    if tokens is not None:
+        parts.append(params["embed"][tokens].to(cdt))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     B, S, _ = x.shape
     steps = {}
     if caches is not None and S == 1:
         if pos is None:
             pos = torch.full((1,), _cache_length(caches), dtype=torch.long,
                              device=x.device)
-        positions = pos.expand(B, 1)
+        pos1d = pos.expand(B, 1)
         steps = _decode_steps(caches, pos, B)
     else:
         offset = _cache_length(caches) if caches is not None else 0
-        positions = (offset + torch.arange(S, device=x.device))[None]
-        positions = positions.expand(B, S)
+        pos1d = (offset + torch.arange(S, device=x.device))[None]
+        pos1d = pos1d.expand(B, S)
+    if positions is None:
+        positions = (pos1d.expand(3, B, S) if cfg.m_rope_sections
+                     else pos1d)
     auxes = [] if aux else None
     new_caches = [] if caches is not None else None
     for gi, g in enumerate(cfg.groups):
@@ -348,11 +356,13 @@ def _cache_length(caches) -> int:
     return 0
 
 
-def prefill(cfg: ModelConfig, params: Params, tokens, caches):
-    """Prefill: run the prompt through, filling caches; returns last-token
-    logits + updated caches."""
+def prefill(cfg: ModelConfig, params: Params, tokens, caches, *,
+            extra_embeds=None, positions=None):
+    """Prefill: run the prompt (after ``extra_embeds``, if given) through,
+    filling caches; returns last-token logits + updated caches."""
     logits, new_caches = forward(cfg, params, tokens, caches=caches,
-                                 logits_slice=True)
+                                 extra_embeds=extra_embeds,
+                                 positions=positions, logits_slice=True)
     return logits[:, 0], new_caches
 
 

@@ -76,6 +76,41 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, K, S, D, win):
     _close(out, flash_attention_plain(*_f32(q, k, v), window=win), dtype)
 
 
+# the last three families' shapes: deepseek-v2's MLA (q/k 192, v 128, at
+# its scale 1/sqrt(192)), qwen2-vl's GQA (G 7) and musicgen's MHA at D 64
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,D,Dv", [
+    (1, 128, 128, 300, 192, 128),     # deepseek-v2 prefill
+    (1, 8, 8, 129, 192, 128),         # one row past a q tile
+    (2, 8, 2, 200, 192, 128),         # GQA at Dv != D
+    (1, 4, 4, 70, 24, 16),            # the reduced MLA
+    (1, 28, 4, 333, 128, 128),        # qwen2-vl
+    (1, 32, 32, 260, 64, 64),         # musicgen
+])
+def test_flash_kernel_takes_the_late_families_shapes(cuda, dtype, B, H, K, S,
+                                                     D, Dv):
+    rng = np.random.default_rng(14)
+    q, k = (_randn(rng, (B, S, n, D), dtype, cuda) for n in (H, K))
+    v = _randn(rng, (B, S, K, Dv), dtype, cuda)
+    scale = 1.0 / np.sqrt(D)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == (B, S, H, Dv)
+    _close(out, flash_attention_plain(*_f32(q, k, v), scale=scale), dtype)
+
+
+def test_flash_kernel_refuses_a_box_pair_it_is_not_built_for(cuda):
+    """bf16 is instantiated for the served (D, Dv) box pairs only: D = Dv
+    = 192 (three boxes each) is refused before launch; f32 takes it."""
+    q = torch.zeros((1, 64, 2, 192), device=cuda)
+    v = torch.zeros((1, 64, 2, 192), device=cuda)
+    assert flash_attention(q, q, v).shape == (1, 64, 2, 192)
+    with pytest.raises(ValueError, match="not built"):
+        flash_attention(q.bfloat16(), q.bfloat16(), v.bfloat16())
+
+
 def test_flash_kernel_reads_a_cache_slice_in_place(cuda):
     """Prefill reads k/v as a strided slice of the (B, max_seq, K, D)
     cache; the kernel must honor the strides."""
@@ -116,6 +151,33 @@ def test_decode_kernel_matches_plain(cuda, dtype, B, H, K, S, D):
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
     _close(out, decode_attention_plain(*_f32(q, k, v), vl), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,D,Dv,lens", [
+    (1, 128, 128, 1024, 192, 128, [517]),          # deepseek-v2 decode
+    (1, 128, 128, 1024, 192, 128, [1]),
+    (4, 16, 4, 300, 192, 128, [300, 100, 33, 0]),  # GQA, valid_len 0
+    (2, 4, 4, 64, 24, 16, [64, 9]),                # the reduced MLA
+    (1, 28, 4, 1024, 128, 128, [517]),             # qwen2-vl: G 7
+    (1, 32, 32, 1024, 64, 64, [517]),              # musicgen
+    (2, 8, 2, 200, 64, 136, [200, 51]),            # Dv > D: a whole warp
+])
+def test_decode_kernel_takes_the_late_families_shapes(cuda, dtype, B, H, K,
+                                                      S, D, Dv, lens):
+    rng = np.random.default_rng(15)
+    q = _randn(rng, (B, H, D), dtype, cuda)
+    k = _randn(rng, (B, S, K, D), dtype, cuda)
+    v = _randn(rng, (B, S, K, Dv), dtype, cuda)
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    scale = 1.0 / np.sqrt(D)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, vl, scale=scale)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.shape == (B, H, Dv)
+    _close(out, decode_attention_plain(*_f32(q, k, v), vl, scale=scale),
+           dtype)
 
 
 def test_decode_kernel_valid_len_edges(cuda):
@@ -305,6 +367,8 @@ def test_rglru_scan_kernel_matches_plain(cuda, dtype, B, S, dr):
     (1, 128, 1, 8),                  # llama4 decode
     (512, 128, 1, 8),                # llama4 prefill
     (4096, 160, 6, 64),              # deepseek-v2 routing, drops
+    (1, 160, 6, 8),                  # deepseek-v2 decode
+    (512, 160, 6, 24),               # deepseek-v2 prefill
     (100, 8, 2, 16),
     (3000, 4, 2, 8),                 # many tiles of entries per expert
 ])
@@ -614,9 +678,12 @@ def _to(tree, device):
 # the engine's decode step captured in CUDA graphs
 # ---------------------------------------------------------------------------
 #: the reduced families at f32 compute; xLSTM on the reference's canary
-#: stack (one mLSTM and one sLSTM block, twice), as in the CPU parity tests
+#: stack (one mLSTM and one sLSTM block, twice), as in the CPU parity
+#: tests; deepseek-v2 (MLA) and qwen2-vl (M-RoPE) decode from positions
+#: made on the device as the others do
 GRAPH_ARCHS = ["phi3-mini-3.8b", "recurrentgemma-2b",
-               "llama4-maverick-400b-a17b", "xlstm-1.3b"]
+               "llama4-maverick-400b-a17b", "xlstm-1.3b",
+               "deepseek-v2-236b", "qwen2-vl-7b"]
 
 
 def _reduced_f32(arch):
@@ -652,7 +719,7 @@ def _kernel_layers(cfg):
     attn = moe = 0
     for g in cfg.groups:
         for i, mixer in enumerate(g.pattern):
-            attn += g.count * (mixer in ("attn", "attn_local"))
+            attn += g.count * (mixer in ("attn", "attn_local", "mla"))
             moe += g.count * (g.ffn_of(i) == "moe")
     return attn, moe
 

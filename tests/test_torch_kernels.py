@@ -94,6 +94,60 @@ def test_decode_plain_matches_pallas_and_ref(dtype, B, H, K, S, D, kb):
     np.testing.assert_allclose(_f32(out), _f32(ref), **TOLS[dtype])
 
 
+# a value head dim Dv unlike the q/k head dim D: the reduced MLA's 24/16
+# and deepseek-v2's 192/128
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,K,S,D,Dv,kb", [
+    (2, 4, 4, 70, 24, 16, 32),
+    (1, 4, 4, 40, 192, 128, 16),
+    (2, 4, 2, 33, 192, 128, 16),           # GQA at Dv != D
+])
+def test_attention_plain_takes_dv_like_pallas_and_ref(dtype, B, H, K, S, D,
+                                                      Dv, kb):
+    """Flash (causal prompt) and decode (a cache masked at valid_len) with
+    v (…, Dv): the port's wrappers against the Pallas kernels in interpret
+    mode and the jnp references, output (…, Dv)."""
+    rng = np.random.default_rng(4)
+    scale = 1.0 / np.sqrt(D)
+    (jq, tq), (jk, tk) = (
+        _pair(rng.standard_normal((B, S, n, D)).astype(np.float32), dtype)
+        for n in (H, K))
+    jv, tv = _pair(rng.standard_normal((B, S, K, Dv)).astype(np.float32),
+                   dtype)
+    out = flash_attention(tq, tk, tv, scale=scale)
+    assert out.dtype == tq.dtype and out.shape == (B, S, H, Dv)
+    pallas = j_flash(jq, jk, jv, scale=scale, q_block=kb, kv_block=kb,
+                     interpret=True)
+    ref = attention_ref(*(t.transpose(0, 2, 1, 3) for t in (jq, jk, jv)),
+                        scale=scale).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **TOLS[dtype])
+    np.testing.assert_allclose(_f32(out), _f32(ref), **TOLS[dtype])
+
+    lens = np.array([max(1, S - 11 * i) for i in range(B)], np.int32)
+    out = decode_attention(tq[:, 0], tk, tv, torch.from_numpy(lens))
+    assert out.dtype == tq.dtype and out.shape == (B, H, Dv)
+    pallas = j_decode(jq[:, 0], jk, jv, jnp.asarray(lens), kv_block=kb,
+                      interpret=True)
+    ref = decode_attention_ref(jq[:, 0], jk, jv, jnp.asarray(lens))
+    np.testing.assert_allclose(_f32(out), _f32(pallas), **TOLS[dtype])
+    np.testing.assert_allclose(_f32(out), _f32(ref), **TOLS[dtype])
+
+
+def test_wrappers_reject_a_value_cache_of_another_length():
+    """k and v must agree but for their last dimension."""
+    q = torch.zeros((1, 4, 4, 24))
+    k = torch.zeros((1, 4, 4, 24))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, torch.zeros((1, 5, 4, 16)))
+    with pytest.raises(ValueError):
+        decode_attention(q[:, 0], k, torch.zeros((1, 4, 2, 16)),
+                         torch.ones((1,), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        decode_attention(q[:, 0], torch.zeros((1, 4, 4, 16)),
+                         torch.zeros((1, 4, 4, 16)),
+                         torch.ones((1,), dtype=torch.int32))
+
+
 def test_decode_valid_len_zero_follows_the_pallas_kernel():
     """valid_len 0: the Pallas kernel's additive -1e30 mask averages V over
     the cache; the jnp reference's -inf mask gives NaN.  The port follows
@@ -244,9 +298,10 @@ def _flash_tensor_core_emulation(q, k, v, *, window=None, split_p=True,
     logits in log2 units with the additive -1e30 masks, an online softmax
     over kv tiles (exp2), P split into bf16 hi and lo parts (or rounded to
     bf16 once) multiplied with bf16 V and summed in f32, normalised last.
-    q: (B, Sq, H, D), k/v: (B, Sk, K, D), bf16 values; returns f32."""
+    q: (B, Sq, H, D), k: (B, Sk, K, D), v: (B, Sk, K, Dv), bf16 values;
+    returns f32 (B, Sq, H, Dv)."""
     B, Sq, H, D = q.shape
-    Sk, K = k.shape[1], k.shape[2]
+    Sk, K, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = H // K
     c = (1.0 / np.sqrt(D)) * np.log2(np.e)
     qf = q.float().reshape(B, Sq, K, G, D)
@@ -254,7 +309,7 @@ def _flash_tensor_core_emulation(q, k, v, *, window=None, split_p=True,
     neg = torch.tensor(-1e30)
     m = torch.full((B, K, G, Sq), -1e30)
     l = torch.zeros((B, K, G, Sq))
-    acc = torch.zeros((B, K, G, Sq, D))
+    acc = torch.zeros((B, K, G, Sq, Dv))
     q_pos = torch.arange(Sq)[:, None]
     for k0 in range(0, Sk, kv_tile):
         kt, vt = kf[:, k0:k0 + kv_tile], vf[:, k0:k0 + kv_tile]
@@ -277,7 +332,7 @@ def _flash_tensor_core_emulation(q, k, v, *, window=None, split_p=True,
         acc = acc * alpha[..., None] + pv
         m = mn
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
 
 
 @pytest.mark.parametrize("B,H,K,S,D,win", [
@@ -302,6 +357,26 @@ def test_flash_tensor_core_design_holds_the_card_tolerance(B, H, K, S, D,
     assert bool(((emu - ref).abs() <= 2e-5 + 2e-5 * ref.abs()).all())
     once = _flash_tensor_core_emulation(q, k, v, window=win, split_p=False)
     assert not bool(((once - ref).abs() <= 2e-5 + 2e-5 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("S", [150, 300])
+def test_flash_tensor_core_design_holds_the_card_tolerance_at_mla_dims(S):
+    """deepseek-v2's MLA heads, q/k 192 wide and v 128, at its scale
+    1/sqrt(192): the split P keeps the bf16 output within the card check
+    of the plain version."""
+    rng = np.random.default_rng(22)
+    H, D, Dv = 4, 192, 128
+    q, k = (torch.from_numpy(rng.standard_normal((1, S, H, D))
+                             .astype(np.float32)).bfloat16().float()
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((1, S, H, Dv)).astype(
+        np.float32)).bfloat16().float()
+    ref = flash_attention_plain(q, k, v)
+    emu = _flash_tensor_core_emulation(q, k, v)
+    assert emu.shape == (1, S, H, Dv)
+    bound = 2e-5 + 2.0 ** -8 * ref.abs()
+    assert bool(((emu.bfloat16().float() - ref).abs() <= bound).all())
+    assert bool(((emu - ref).abs() <= 2e-5 + 2e-5 * ref.abs()).all())
 
 
 def _decode_split_emulation(q, k, v, valid_len, splits):

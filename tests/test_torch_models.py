@@ -1,10 +1,12 @@
 """The port's decoder against the JAX package's: reduced phi3-mini,
 recurrentgemma, llama4, the dense families (minicpm-2b, deepseek-coder-33b,
-mistral-large-123b) and xLSTM at f32 compute, with the JAX parameters
-carried over through ``params_from_numpy``, give the same logits and
-greedy tokens; the RG-LRU, MoE, mLSTM and sLSTM blocks match on their
-own; the port's own draws follow the reference's scale rule; a decode
-step driven by a device position equals the host-int one."""
+mistral-large-123b), xLSTM, deepseek-v2 (MLA), qwen2-vl (M-RoPE) and
+musicgen at f32 compute, with the JAX parameters carried over through
+``params_from_numpy``, give the same logits and greedy tokens; the
+RG-LRU, MoE, MLA, mLSTM and sLSTM blocks and M-RoPE match on their own;
+the stub frontends draw what the reference's draw; the port's own draws
+follow the reference's scale rule; a decode step driven by a device
+position equals the host-int one."""
 import dataclasses
 
 import numpy as np
@@ -22,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config, list_archs, reduced  # noqa: E402
 from repro.configs.base import LayerGroup  # noqa: E402
 from repro.models import decode_step, forward, init_cache, init_params, prefill  # noqa: E402
+from repro.models import frontends as jfront  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.models import recurrent as jrec  # noqa: E402
@@ -29,6 +32,7 @@ from repro.models import transformer as jtr  # noqa: E402
 from repro.models import xlstm as jx  # noqa: E402
 import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch import models as tm  # noqa: E402
+from repro_torch.models import frontends as tfront  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import recurrent as trec  # noqa: E402
@@ -48,6 +52,10 @@ XLSTM_STACK = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
 #: the dense families the port runs beside phi3 (minicpm ties its head to
 #: the embedding)
 DENSE = ("minicpm-2b", "deepseek-coder-33b", "mistral-large-123b")
+#: MLA with a MoE stack behind a dense first layer, M-RoPE, and the audio
+#: backbone (MHA at head dim 64)
+DSV2, QWEN2VL, MUSICGEN = "deepseek-v2-236b", "qwen2-vl-7b", "musicgen-large"
+LATE = (DSV2, QWEN2VL, MUSICGEN)
 CPU = torch.device("cpu")
 #: f32 on both sides; the sums run in another order
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -167,14 +175,6 @@ def test_chunked_prefill_is_not_ported_yet(rig):
         tm.prefill(tcfg, tp, torch.tensor([[4, 5]]), tc)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "qwen2-vl-7b",
-                                  "musicgen-large"])
-def test_later_families_raise_not_implemented(arch):
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError):
-        tm.init_params(cfg, torch.Generator().manual_seed(0), CPU)
-
-
 def test_no_silent_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tconfigs.reduced(tconfigs.get_config(ARCH))
@@ -204,7 +204,7 @@ def _tree_close(got, want, **tol):
         np.testing.assert_allclose(_np(got), _np(want), **tol)
 
 
-@pytest.fixture(scope="module", params=[RG, LLAMA4, *DENSE, XLSTM])
+@pytest.fixture(scope="module", params=[RG, LLAMA4, *DENSE, XLSTM, *LATE])
 def family(request):
     """(jcfg, tcfg, jax params, port params, jitted JAX prefill/decode)."""
     jcfg, tcfg = _cfgs(request.param, **_stack(request.param))
@@ -378,6 +378,154 @@ def test_cast_params_casts_the_reference_set():
 
 
 # ---------------------------------------------------------------------------
+# MLA (deepseek-v2), M-RoPE and the stub frontends (qwen2-vl, musicgen)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["none", "prefill", "decode"])
+def test_mla_forward_matches_reference(mode):
+    """One MLA block (q through the q LoRA, 24-wide q/k heads, 16-wide v
+    heads): without a cache on 13 tokens, a 13-token prefill into a
+    latent cache, and (decode) one token from the cache it left, with
+    the cache's latent and rope rows."""
+    jcfg, tcfg = _cfgs(DSV2)
+    jp = jl.init_mla(jcfg, jax.random.PRNGKey(9))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    rng = np.random.default_rng(9)
+    B, S, W = 2, 13, 32
+    x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    if mode == "none":
+        jout, _ = jl.mla_forward(jcfg, jp, jnp.asarray(x), jnp.asarray(pos))
+        tout, none = tl.mla_forward(tcfg, tp, torch.from_numpy(x),
+                                    torch.from_numpy(pos.copy()))
+        assert none is None
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+        return
+    jc = jl.init_mla_cache(jcfg, B, W, jnp.float32)
+    tc = {k: v[0] if isinstance(v, torch.Tensor) else v for k, v in
+          tl.init_mla_cache(tcfg, B, W, torch.float32, CPU).items()}
+    jout, jc = jl.mla_forward(jcfg, jp, jnp.asarray(x), jnp.asarray(pos), jc)
+    tout, tc = tl.mla_forward(tcfg, tp, torch.from_numpy(x),
+                              torch.from_numpy(pos.copy()), tc)
+    if mode == "decode":
+        x1 = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
+        p1 = np.full((B, 1), S)
+        jout, jc = jl.mla_forward(jcfg, jp, jnp.asarray(x1), jnp.asarray(p1),
+                                  jc)
+        step = (torch.tensor([S]), torch.full((B,), S + 1, dtype=torch.int32))
+        tout, tc = tl.mla_forward(tcfg, tp, torch.from_numpy(x1),
+                                  torch.from_numpy(p1), tc, step=step)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    assert tc["length"] == int(jc["length"])
+    for key in ("c_kv", "k_rope"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("D,sections", [(16, (4, 2, 2)),
+                                        (128, (16, 24, 24))])
+def test_m_rope_matches_reference(D, sections):
+    """Distinct (t, h, w) coordinates per token (a 2x3 patch grid after
+    text), each section of frequency pairs turned by its own; and the
+    same (3, B, S) positions on the 1-D path, which takes t."""
+    rng = np.random.default_rng(10)
+    B, S = 2, 9
+    x = rng.standard_normal((B, S, 3, D)).astype(np.float32)
+    t = np.array([0, 1, 2, 3, 3, 3, 3, 3, 3])
+    h = np.array([0, 1, 2, 3, 3, 3, 4, 4, 4])
+    w = np.array([0, 1, 2, 3, 4, 5, 3, 4, 5])
+    pos = np.stack([np.broadcast_to(c + 7 * b, (S,)) for c in (t, h, w)
+                    for b in range(B)]).reshape(3, B, S).astype(np.int32)
+    for sec in (sections, ()):
+        got = tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6,
+                            sec)
+        want = jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6, sec)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError):
+        tl.apply_rope(torch.from_numpy(x), torch.from_numpy(pos[0]), 1e6,
+                      sections)
+
+
+def test_forward_takes_extra_embeds_and_positions():
+    """qwen2-vl: patch embeddings prepended to the text with distinct
+    M-RoPE positions (forward), and a prefill after patch embeddings at
+    the default positions followed by greedy decode steps, against the
+    reference."""
+    jcfg, tcfg = _cfgs(QWEN2VL)
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    rng = np.random.default_rng(11)
+    B, P, S = 2, 6, 5
+    emb = (rng.standard_normal((B, P, jcfg.d_model)) * 0.02).astype(
+        np.float32)
+    toks = rng.integers(0, jcfg.vocab_size, (B, S))
+    grid = np.stack([np.zeros(P), np.arange(P) // 3, np.arange(P) % 3])
+    text = np.broadcast_to(np.arange(3, 3 + S), (3, S))
+    pos = np.broadcast_to(np.concatenate([grid, text], 1)[:, None],
+                          (3, B, P + S)).astype(np.int32)
+    jlog, _, _ = forward(jcfg, jp, jnp.asarray(toks, jnp.int32),
+                         extra_embeds=jnp.asarray(emb),
+                         positions=jnp.asarray(pos))
+    tlog, _ = tm.forward(tcfg, tp, torch.from_numpy(toks),
+                         extra_embeds=torch.from_numpy(emb),
+                         positions=torch.from_numpy(pos.copy()))
+    assert tlog.shape == (B, P + S, jcfg.vocab_size)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    default, _ = tm.forward(tcfg, tp, torch.from_numpy(toks),
+                            extra_embeds=torch.from_numpy(emb))
+    assert not torch.allclose(default, tlog)      # the positions mattered
+    jc = init_cache(jcfg, B, 32, dtype=jnp.float32)
+    jlog, jc = prefill(jcfg, jp, jnp.asarray(toks, jnp.int32), jc,
+                       extra_embeds=jnp.asarray(emb))
+    tc = tm.init_cache(tcfg, B, 32, dtype=torch.float32, device=CPU)
+    tlog, tc = tm.prefill(tcfg, tp, torch.from_numpy(toks), tc,
+                          extra_embeds=torch.from_numpy(emb))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    tok = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+    for _ in range(4):
+        jlog, jc = decode_step(jcfg, jp, jnp.asarray(tok), jc)
+        tlog, tc = tm.decode_step(tcfg, tp, torch.from_numpy(tok).long(), tc)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+        tok = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+    assert tt._cache_length(tc) == P + S + 4
+
+
+def test_frontends_draw_the_reference_shapes_dtypes_and_scale():
+    gen = torch.Generator().manual_seed(12)
+    toks = tfront.make_audio_tokens(gen, 3, 500)
+    want = jfront.make_audio_tokens(jax.random.PRNGKey(12), 3, 500)
+    assert toks.shape == want.shape and str(toks.dtype) == "torch.int32"
+    assert np.dtype(want.dtype) == np.int32
+    assert int(toks.min()) >= 0 and int(toks.max()) < 2048
+    assert len(torch.unique(toks)) > 1000
+    small = tfront.make_audio_tokens(gen, 1, 64, vocab=256)
+    assert int(small.max()) < 256
+    emb = tfront.make_patch_embeds(gen, 2, 256, 64)
+    jemb = jfront.make_patch_embeds(jax.random.PRNGKey(12), 2, 256, 64)
+    assert emb.shape == jemb.shape and emb.dtype == torch.bfloat16
+    assert str(jemb.dtype) == "bfloat16"
+    assert abs(float(emb.float().std()) / float(
+        np.asarray(jemb, np.float32).std()) - 1) < 0.1
+    assert abs(float(emb.float().mean())) < 0.002
+    f32 = tfront.make_patch_embeds(gen, 1, 8, 16, dtype=torch.float32)
+    assert f32.dtype == torch.float32
+
+
+def test_cast_params_casts_the_mla_projections():
+    """MLA's down- and up-projections and wo to the compute dtype, as the
+    reference casts them at use; the router and the norms stay f32."""
+    cfg = tconfigs.reduced(tconfigs.get_config(DSV2))         # bf16 compute
+    out = tm.cast_params(
+        cfg, tm.init_params(cfg, torch.Generator().manual_seed(0), CPU))
+    for g in out["groups"]:
+        mla = g["sub0"]["mixer"]
+        assert set(mla) == {"w_dq", "w_uq", "w_dkv", "w_krope", "w_uk",
+                            "w_uv", "wo"}
+        assert all(w.dtype == torch.bfloat16 for w in mla.values())
+        assert g["sub0"]["norm1"].dtype == torch.float32
+    assert out["groups"][1]["sub0"]["ffn"]["router"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
 # the port's own draws, the aux, and the decode step by device position
 # ---------------------------------------------------------------------------
 def _items(tree, path=""):
@@ -393,7 +541,7 @@ def _items(tree, path=""):
         yield path, tree
 
 
-@pytest.mark.parametrize("arch", [ARCH, RG, LLAMA4, XLSTM, *DENSE])
+@pytest.mark.parametrize("arch", [ARCH, RG, LLAMA4, XLSTM, *DENSE, *LATE])
 def test_init_scale_follows_the_reference(arch):
     """``init_params``' own draws have the reference's scale (1/sqrt of
     the per-layer ``shape[0]``: the expert or block count of a 3-d
@@ -438,6 +586,8 @@ def test_forward_returns_the_reference_aux_when_asked():
     (RG, 20, 40),          # the ring of 32 rows wraps at step 12
     (LLAMA4, 11, 8),
     (XLSTM, 11, 8),
+    (DSV2, 11, 8),         # the latent cache's row and mask from pos
+    (QWEN2VL, 11, 8),      # M-RoPE's (3, B, 1) positions from pos
 ])
 def test_decode_by_device_position_matches_host_path_and_reference(
         arch, prompt_len, steps):
@@ -471,7 +621,7 @@ def test_decode_by_device_position_matches_host_path_and_reference(
         torch.testing.assert_close(d, h, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("arch", [ARCH, RG, LLAMA4, XLSTM])
+@pytest.mark.parametrize("arch", [ARCH, RG, LLAMA4, XLSTM, DSV2])
 def test_reset_cache_restores_init_cache_in_place(arch):
     _, tcfg = _cfgs(arch)
     caches = tm.init_cache(tcfg, 1, 48, dtype=torch.float32, device=CPU)

@@ -1,6 +1,7 @@
 """The port's serving engine against the JAX package's: the same requests
 give the same greedy tokens for phi3-mini, recurrentgemma, llama4, the
-dense families and xLSTM, inline and under the port's executor; a slot
+dense families, xLSTM, deepseek-v2, qwen2-vl and musicgen, inline and
+under the port's executor; a slot
 reused after a reset serves as a fresh one; and the port stands alone —
 no module of it imports JAX or the JAX package."""
 import ast
@@ -123,9 +124,11 @@ def _family_cfgs(arch):
 @pytest.fixture(scope="module",
                 params=["recurrentgemma-2b", "llama4-maverick-400b-a17b",
                         "minicpm-2b", "deepseek-coder-33b",
-                        "mistral-large-123b", "xlstm-1.3b"])
+                        "mistral-large-123b", "xlstm-1.3b",
+                        "deepseek-v2-236b", "qwen2-vl-7b", "musicgen-large"])
 def family(request):
-    """A reduced recurrent, MoE, dense or xLSTM model in both packages,
+    """A reduced recurrent, MoE, dense, xLSTM, MLA, M-RoPE or audio model
+    in both packages,
     and the JAX engine's tokens for PROMPTS (max_seq 48: recurrentgemma's
     ring of 32 rows wraps on the longest request; four requests on two
     slots, so two slots are reset and reused)."""
@@ -184,7 +187,8 @@ def test_reused_slot_serves_as_a_fresh_engine(arch):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b",
                                   "llama4-maverick-400b-a17b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "deepseek-v2-236b",
+                                  "qwen2-vl-7b", "musicgen-large"])
 def test_serve_launcher_on_cpu_for_the_new_families(arch, capsys):
     from repro_torch.launch import serve
     assert serve.main(["--arch", arch, "--reduced", "--requests", "3",
