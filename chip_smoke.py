@@ -6,7 +6,7 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version at the serving
    paths' shapes (phi3-mini, recurrentgemma-2b, llama4-maverick,
@@ -64,6 +64,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    plus device and the bytes bound; graphed: the replay's enqueue and
    enqueue plus device).  Each path frees its weights before the next.
 
+6. train, two paths, each through ``repro_torch.launch.train.train``
+   (the reference launcher's graph: host(data) → pull(batch) →
+   kernel(step) → host(metrics)) and the Executor over ``cuda:0``, random
+   weights from seed 0, ``SyntheticSource`` batches, f32 master weights,
+   bf16 compute, remat ``full``, eager steps, the launch counts zeroed
+   before and read after each:
+   - minicpm-2b, full width and depth (40 layers, tied 122753 vocab),
+     WSD, B 4 × S 1024, 6 steps; per step flash = 80 (40 forwards and
+     40 recomputed ones), flash_bwd = 40;
+   - recurrentgemma-2b, full width and depth (26 layers, untied 256000
+     vocab), cosine, B 1 × S 3072 (the 2048 window masks), 4 steps; per
+     step rglru_scan = 36, rglru_scan_bwd = 18, flash = 16, flash_bwd = 8.
+   Losses and gradient norms are finite; printed: the median step time
+   past the first (warm-up) step, tokens/s, MFU against 989 TFLOP/s
+   (model FLOPs 6·N·T over the matmul parameters plus the attention
+   products, recomputation not counted) and peak memory.
+
+Phase 3 also holds the forward's log-sum-exp output and the two
+backward kernels (``flash_attention_bwd`` at the two train shapes in
+bf16 and a small f32 one, with SDPA's backward as the yardstick and its
+backend named; ``rglru_scan_bwd`` at recurrentgemma's train shape in f32
+and bf16) against their plain versions.  Phase 4 also trains reduced
+minicpm-2b, recurrentgemma and llama4 (f32 compute) for 3 steps on the
+card and on the CPU from one state (per-step losses within 1e-4, params
+within 1e-4 + 1e-5·|p|, the bounds of ``tests/test_torch_training.py``),
+drives reduced phi3-mini's loss down by 0.5 in 12 steps on one repeated
+batch, and round-trips a reduced train state through ``async_save`` and
+``restore`` bit for bit.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
 or without the repository's ``src/repro_torch`` beside this script.
@@ -76,6 +105,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -94,6 +124,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 ATOL = 2e-5
 RTOL = {"float32": 2e-5, "bfloat16": 2.0 ** -8}
 PHI3 = "phi3-mini-3.8b"
+MINICPM = "minicpm-2b"
 RG = "recurrentgemma-2b"
 LLAMA4 = "llama4-maverick-400b-a17b"
 XLSTM = "xlstm-1.3b"
@@ -161,6 +192,8 @@ def kernel_phase(torch, dev) -> dict:
     chosen.update(_decode_cases(torch, dev, randn, flush))
     chosen.update(_rglru_cases(torch, dev, randn, flush))
     chosen.update(_gating_cases(torch, dev, randn, flush))
+    chosen.update(_flash_bwd_cases(torch, dev, randn, flush))
+    chosen.update(_rglru_bwd_cases(torch, dev, randn, flush))
     return chosen
 
 
@@ -417,6 +450,153 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
     return chosen
 
 
+def _flash_bwd_cases(torch, dev, randn, flush) -> dict:
+    """The forward's log-sum-exp output and the flash backward at the two
+    train paths' shapes (minicpm-2b: B 4, S 1024, H = K = 36, D 64;
+    recurrentgemma-2b: B 1, S 3072, H 10, K 1, D 256, window 2048; bf16)
+    and a small f32 case, against the plain versions on f32 copies of
+    the same inputs.  Yardstick: SDPA's backward on the same q, k, v and
+    dout (kv heads repeated to H), the backend named.  The bound counts
+    the five products a flash backward needs (S again, dP, dV, dK, dQ:
+    2.5x the forward's), not the kernel's two recomputations."""
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     flash_attention_bwd_plain,
+                                     flash_attention_plain)
+
+    chosen = {}
+    for name, B, H, K, S, D, win, dt in [
+            ("minicpm-2b", 4, 36, 36, 1024, 64, None, "bfloat16"),
+            ("recurrentgemma-2b", 1, 10, 1, 3072, 256, 2048, "bfloat16"),
+            ("small", 1, 8, 2, 512, 64, None, "float32")]:
+        dtype = getattr(torch, dt)
+        q, k = (randn((B, S, n, D), dtype) for n in (H, K))
+        v = randn((B, S, K, D), dtype)
+        dout = randn((B, S, H, D), dtype)
+        scale = D ** -0.5
+        out, lse = flash_attention(q, k, v, window=win, scale=scale,
+                                   with_lse=True)
+        _, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                           window=win, scale=scale,
+                                           with_lse=True)
+        lse_err = _check(torch, "flash_attention lse", lse, ref_lse,
+                         "float32")
+        del ref_lse
+        got = flash_attention_bwd(q, k, v, out, dout, lse, window=win,
+                                  scale=scale)
+        want = flash_attention_bwd_plain(
+            *(t.float() for t in (q, k, v, out, dout)), lse, window=win,
+            scale=scale)
+        err = max(_check(torch, f"flash_attention_bwd d{n}", g, w, dt)
+                  for n, g, w in zip("qkv", got, want))
+        del got, want
+        lib, backend = _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush)
+        seen = sum(min(i + 1, win or S) for i in range(S))
+        flops = 2 * B * H * 5 * D * seen
+        nbytes = dtype.itemsize * B * S * (4 * H * D + 4 * K * D) \
+            + 4 * B * H * S
+        bound, bound_by = _bounds(nbytes, flops, dt)
+        row = {"name": "flash_attention_bwd", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               "replaces": "src/repro/models/layers.py:194",
+               "max_abs_err": err,
+               "ms": _median_ms(torch, lambda: flash_attention_bwd(
+                   q, k, v, out, dout, lse, window=win, scale=scale), flush),
+               "plain_ms": _median_ms(torch, lambda: flash_attention_bwd_plain(
+                   q, k, v, out, dout, lse, window=win, scale=scale), flush,
+                   reps=5),
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": lib}
+        print(f"  flash_attention_bwd {name} B={B} H={H} K={K} S={S} D={D} "
+              f"window={win} {dt}: lse err {lse_err}; {err} {ATOL} "
+              f"{RTOL[dt]} {row['ms']} {row['plain_ms']} {lib} (SDPA "
+              f"backward, {backend}) {bound} {bound_by}")
+        if name == "minicpm-2b":
+            chosen["flash_attention_bwd"] = row
+    return chosen
+
+
+def _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush):
+    """SDPA's backward on (B, H, S, D) copies of the inputs (kv heads
+    repeated to H), timed alone from a retained graph, and the first of
+    ``SDPA_BACKENDS`` that takes the case (a window needs a mask)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    H, K, S = q.shape[2], k.shape[2], q.shape[1]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_(True) for t in (k, v))
+    dt = dout.transpose(1, 2).contiguous()
+    mask = None
+    if win is not None:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[:, None] >= pos[None, :]) \
+            & (pos[:, None] - pos[None, :] < win)
+    for name in SDPA_BACKENDS:
+        with sdpa_kernel([getattr(SDPBackend, name)]):
+            try:
+                with warnings.catch_warnings():   # why a backend declined
+                    warnings.simplefilter("ignore", UserWarning)
+                    out = F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                        scale=scale)
+                    torch.autograd.grad(out, (qt, kt, vt), dt,
+                                        retain_graph=True)
+            except RuntimeError:
+                continue
+            ms = _median_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dt, retain_graph=True), flush)
+            return ms, name
+    raise AssertionError("no SDPA backend takes the backward case")
+
+
+def _rglru_bwd_cases(torch, dev, randn, flush) -> dict:
+    """The scan's backward at recurrentgemma's train shape (B 1, S 3072,
+    d_rnn 2560) in f32 (bit for bit with the plain version, whose steps
+    round as the kernel's) and bf16, with the launch shape the wrapper
+    picks.  No single PyTorch call computes it: library_ms is null."""
+    from repro_torch.kernels import rglru_scan_bwd, rglru_scan_bwd_plain
+    from repro_torch.kernels.rglru_scan.ops import scan_launch_shape
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chosen = {}
+    B, S, dr = 1, 3072, 2560
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        dy, h = randn((B, S, dr), dtype), randn((B, S, dr), dtype)
+        a = torch.sigmoid(randn((B, S, dr), torch.float32)).to(dtype)
+        h0 = randn((B, dr), torch.float32)
+        got = rglru_scan_bwd(dy, a, h, h0)
+        want = rglru_scan_bwd_plain(dy, a, h, h0)
+        err = max(_check(torch, f"rglru_scan_bwd {n}", g, w, dt)
+                  for n, g, w in zip(("dx", "da", "dh0"), got, want))
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        if dt == "float32" and not exact:
+            raise AssertionError("rglru_scan_bwd: f32 is not bit for bit "
+                                 "the plain version")
+        nbytes = 5 * B * S * dr * dtype.itemsize + 8 * B * dr
+        bound, bound_by = _bounds(nbytes, 3 * B * S * dr, "float32")
+        row = {"name": "rglru_scan_bwd", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+               "replaces": "src/repro/models/recurrent.py:91",
+               "max_abs_err": err,
+               "ms": _median_ms(torch, lambda: rglru_scan_bwd(dy, a, h, h0),
+                                flush),
+               "plain_ms": _median_ms(
+                   torch, lambda: rglru_scan_bwd_plain(dy, a, h, h0), flush,
+                   reps=3),
+               "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        shape = scan_launch_shape(B, S, dr, dtype.itemsize, sms, inputs=3,
+                                  outputs=2)
+        print(f"  rglru_scan_bwd B={B} S={S} dr={dr} {dt} (route "
+              f"{shape.route}, cb {shape.cb}, {shape.blocks} blocks, "
+              f"{shape.stages} stages of {shape.rows} steps): {err} "
+              f"(bit-identical: {exact}) {ATOL} {RTOL[dt]} {row['ms']} "
+              f"{row['plain_ms']} None {bound} {bound_by}")
+        if dt == "float32":
+            chosen["rglru_scan_bwd"] = row
+    return chosen
+
+
 def reference_phase(torch, dev) -> None:
     """Reduced phi3-mini, recurrentgemma, llama4, xLSTM, deepseek-v2 (MLA),
     qwen2-vl (M-RoPE) and musicgen (f32 compute) on the card with the
@@ -480,6 +660,94 @@ def reference_phase(torch, dev) -> None:
             _patch_prefill(torch, cfg, params, prompt, dev)
 
 
+#: training on the card against the CPU (phase 4): per-step losses and
+#: the params after 3 steps at lr 1e-3, the bounds of
+#: tests/test_torch_training.py (MODEL_TOL's rtol, STEP_TOL)
+TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_RTOL = 1e-4, 1e-4, 1e-5
+
+
+def train_reference_phase(torch, dev) -> None:
+    """Reduced minicpm-2b, recurrentgemma and llama4 (f32 compute, remat
+    full) trained 3 steps from one state on the CPU (plain kernels) and
+    on the card (forward and backward kernels, the gating kernel with the
+    recomputed gates): the same losses and params.  Reduced phi3-mini
+    (bf16 compute) memorises one batch: loss down by 0.5 in 12 steps.  A
+    reduced train state on the card survives async_save and restore bit
+    for bit."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import Executor
+    from repro_torch.data import SyntheticSource
+    from repro_torch.training import (AdamWConfig, checkpoint,
+                                      init_train_state, make_train_step,
+                                      wsd_schedule)
+    from repro_torch.training.optimizer import leaves
+
+    cpu = torch.device("cpu")
+    opt = AdamWConfig(schedule=wsd_schedule(1e-3, 1, 10, 5))
+    for arch in (MINICPM, RG, LLAMA4):
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  compute_dtype="float32")
+        state0 = init_train_state(cfg, torch.Generator().manual_seed(0), cpu)
+        runs = []
+        for d in (cpu, dev):
+            state = _to(torch, _clone(torch, state0), d)
+            step = make_train_step(cfg, opt, remat_policy="full")
+            losses = []
+            for i in range(3):
+                b = SyntheticSource(cfg.vocab_size, seed=i).batch(0, 4, 16)
+                state, m = step(state, {k: torch.from_numpy(x).to(d)
+                                        for k, x in b.items()})
+                losses.append(float(m["total_loss"]))
+            with torch.no_grad():
+                runs.append((losses, _to(torch, state["params"], cpu)))
+        (cl, cp), (gl, gp) = runs
+        loss_ok = all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+                      for a, b in zip(gl, cl))
+        excess = max(float(((x - y).abs() - TRAIN_PARAM_ATOL
+                            - TRAIN_PARAM_RTOL * y.abs()).max())
+                     for x, y in zip(leaves(gp), leaves(cp)))
+        diff = max(float((x - y).abs().max())
+                   for x, y in zip(leaves(gp), leaves(cp)))
+        print(f"reduced {arch} f32 train, 3 steps: cpu losses {cl} cuda "
+              f"{gl}; max param diff {diff} (tol {TRAIN_PARAM_ATOL} + "
+              f"{TRAIN_PARAM_RTOL}·|p|)")
+        if not loss_ok or excess > 0:
+            raise AssertionError(f"{arch}: training on the card differs "
+                                 f"from the CPU")
+
+    cfg = reduced(get_config(PHI3))
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    step = make_train_step(cfg, AdamWConfig(
+        schedule=wsd_schedule(3e-4, 5, 50, 10), weight_decay=0.0),
+        remat_policy="none")
+    b = SyntheticSource(cfg.vocab_size).batch(0, 4, 16)
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in b.items()}
+    losses = []
+    for _ in range(12):
+        state, m = step(state, batch)
+        losses.append(float(m["total_loss"]))
+    print(f"reduced {PHI3} bf16 memorisation, 12 steps on one batch: loss "
+          f"{losses[0]} -> {losses[-1]}")
+    if not losses[-1] < losses[0] - 0.5:
+        raise AssertionError("the memorisation loss did not fall by 0.5")
+
+    cfg = reduced(get_config(MINICPM))
+    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        with Executor(num_workers=2, devices=[dev]) as ex:
+            checkpoint.async_save(ex, d, 1, state).result(timeout=120)
+        restored, _ = checkpoint.restore(d, state)
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(restored), leaves(state)))
+    print(f"reduced {MINICPM} async_save -> restore on the card: "
+          f"bit-identical {same}")
+    if not same:
+        raise AssertionError("a restored checkpoint differs from the state")
+
+
 def _patch_prefill(torch, cfg, params, prompt, dev) -> None:
     """A prefill of stub patch embeddings (a 2 x 4 grid at t = 0) and the
     text after them at t = h = w = 3, 4, ..., card against CPU."""
@@ -527,8 +795,11 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
 
 
-#: the kernels whose launches each serve phase counts
-COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating")
+#: the kernels whose launches each serve and train phase counts
+COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
+           "flash_attention_bwd", "rglru_scan_bwd")
+#: the H100's bf16 dense peak, the MFU denominator
+MFU_PEAK = PEAK_FLOPS["bfloat16"]
 
 
 def serve_phase(torch, dev, cfg, lengths, max_seq, *,
@@ -650,11 +921,14 @@ def _clone(torch, tree):
 
 
 def _check_counts(counts: dict, want: dict) -> None:
+    """``want`` names the kernels a path runs; every other one must have
+    launched no time."""
+    want = {k: 0 for k in COUNTED} | want
     print("launches: " + ", ".join(f"{k} {counts[k]} (want {want[k]})"
                                    for k in COUNTED))
     if counts != want:
-        raise AssertionError("the serving path did not run every layer "
-                             "through its kernels")
+        raise AssertionError("the path did not run every layer through its "
+                             "kernels")
 
 
 def _decode_step_split(torch, cfg, params, tok, caches, graphs, pos,
@@ -712,6 +986,65 @@ def _decode_step_split(torch, cfg, params, tok, caches, graphs, pos,
           f"{graphed_split[1]} ms")
 
 
+def train_phase(torch, dev, cfg, *, batch: int, seq: int,
+                steps: int) -> dict:
+    """Train ``cfg`` (full width, random weights from seed 0) for
+    ``steps`` steps through ``repro_torch.launch.train.train`` and the
+    Executor over ``dev``, remat full; losses and gradient norms finite.
+    Prints the median step time past the first step, tokens/s, MFU and
+    peak memory; returns the kernels' launch counts of the run."""
+    import math
+
+    from repro_torch import kernels
+    from repro_torch.launch.train import train
+    from repro_torch.training.optimizer import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name in COUNTED:
+        getattr(kernels, name).launches = 0
+    out = train(cfg, steps=steps, batch=batch, seq=seq, device=dev,
+                remat="full")
+    counts = {name: getattr(kernels, name).launches for name in COUNTED}
+    peak = torch.cuda.max_memory_allocated(dev)
+    params = out["state"]["params"]
+    n_params = sum(t.numel() for t in leaves(params))
+    # the matmul parameters: all but the embedding lookup, whose table is
+    # a matmul again where the head is tied
+    n_matmul = n_params - (0 if cfg.tie_embeddings
+                           else params["embed"].numel())
+    losses, gnorms = out["losses"], out["grad_norms"]
+    step_s = statistics.median(out["step_seconds"][1:])
+    del out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = batch * seq
+    attn = 0
+    for g in cfg.groups:
+        for mixer in g.pattern:
+            if mixer in ("attn", "attn_local"):
+                win = cfg.rec.local_window if mixer == "attn_local" else None
+                seen = sum(min(i + 1, win or seq) for i in range(seq))
+                # QK^T and PV forward, twice that backward
+                attn += g.count * 3 * 2 * batch * cfg.n_heads \
+                    * 2 * cfg.head_dim_ * seen
+    flops = 6 * n_matmul * tokens + attn
+    print(f"train {cfg.arch_id} full width ({cfg.n_layers} layers, "
+          f"{n_params} params, f32 master, {cfg.compute_dtype} compute, "
+          f"remat full), B {batch} x S {seq}, {steps} steps: losses "
+          f"{losses}; grad norms {gnorms}; median step (past the first) "
+          f"{step_s} s = {tokens / step_s} tokens/s; model FLOPs per step "
+          f"{flops} (6·N·T with N = {n_matmul} matmul params, plus "
+          f"attention {attn}; recomputation not counted) = MFU "
+          f"{flops / step_s / MFU_PEAK} of {MFU_PEAK / 1e12:.0f} TFLOP/s; "
+          f"max_memory_allocated {peak} B")
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"{cfg.arch_id}: a loss or grad norm is not "
+                             f"finite")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -748,6 +1081,7 @@ def main() -> int:
 
     chosen = kernel_phase(torch, dev)
     reference_phase(torch, dev)
+    train_reference_phase(torch, dev)
     launches = {}
 
     def path(name, cfg, lengths, max_seq, want, **kw):
@@ -801,6 +1135,22 @@ def main() -> int:
     path(MUSICGEN, get_config(MUSICGEN), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 48 * p, "decode_attention": 48 * s,
                        "rglru_scan": 0, "moe_gating": 0})
+
+    def trained(name, cfg, batch, seq, steps, per_step):
+        counts = train_phase(torch, dev, cfg, batch=batch, seq=seq,
+                             steps=steps)
+        _check_counts(counts, {k: n * steps for k, n in per_step.items()})
+        for k, n in counts.items():
+            launches.setdefault(k, {})[f"{name} train"] = n
+
+    # minicpm-2b: 40 attention layers, each forward once and recomputed
+    # once (remat full), one backward
+    trained(MINICPM, get_config(MINICPM), 4, 1024, 6,
+            {"flash_attention": 80, "flash_attention_bwd": 40})
+    # recurrentgemma-2b: 18 RG-LRU and 8 local-attention layers
+    trained(RG, get_config(RG), 1, 3072, 4,
+            {"rglru_scan": 36, "rglru_scan_bwd": 18, "flash_attention": 16,
+             "flash_attention_bwd": 8})
 
     for name, row in chosen.items():
         row["launches"] = sum(launches[name].values())

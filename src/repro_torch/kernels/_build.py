@@ -27,7 +27,8 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: every kernel source of the package, by stem
-SOURCES = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating")
+SOURCES = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
+           "flash_attention_bwd", "rglru_scan_bwd")
 
 _lock = threading.Lock()
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}

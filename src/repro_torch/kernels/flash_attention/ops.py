@@ -1,10 +1,16 @@
-"""Flash attention (forward): the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Flash attention: the CUDA kernels' wrappers (forward and backward) and
+their plain PyTorch versions, joined for autograd.
 
-Model code keeps the (B, S, H, D) layout; the kernel reads it in place
-through strides (no transpose), so a slice of a KV cache goes in as it
-is.  ``flash_attention`` launches ``csrc/flash_attention.cu`` for a CUDA
-tensor and computes :func:`flash_attention_plain` for a CPU tensor.
+Model code keeps the (B, S, H, D) layout; the forward kernel reads it in
+place through strides (no transpose), so a slice of a KV cache goes in
+as it is.  ``flash_attention`` launches ``csrc/flash_attention.cu`` for a
+CUDA tensor and computes :func:`flash_attention_plain` for a CPU tensor.
+When an input requires a gradient it goes through :class:`FlashAttention`
+(the reference's ``custom_vjp``, ``repro.models.layers._make_flash``):
+the forward also writes the rows' log-sum-exp, and the backward
+(``csrc/flash_attention_bwd.cu``, or :func:`flash_attention_bwd_plain` on
+the CPU) recomputes the probabilities from it, so nothing of size S x S
+is kept.
 """
 from __future__ import annotations
 
@@ -15,13 +21,15 @@ import torch
 
 from .._build import function
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain"]
 
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 4 + [_I] * 8 + [_L] * 9
+_ARGTYPES = ([_P] * 5 + [_I] * 8 + [_L] * 9
              + [_I, _I, ctypes.c_float, _P])
+_BWD_ARGTYPES = [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P]
 #: the (q/k, v) counts of 64-column boxes the bf16 kernel is built for
 #: (``csrc/flash_attention.cu``, ``tc::run``): D 8-64, 65-128 and 129-256
 #: with Dv = D, and MLA's D 192 with Dv 128
@@ -36,19 +44,13 @@ def _tma_ready(t: torch.Tensor) -> bool:
         for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, window: int | None = None,
-                          scale: float | None = None) -> torch.Tensor:
-    """Dense f32 attention with the kernel's masking: an additive -1e30
-    for keys hidden by the top-left causal mask or the window.
-
-    q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv), H a multiple
-    of K.  Returns (B, Sq, H, Dv) in q.dtype."""
+def _plain_scores(q, k, causal, window, scale):
+    """The masked f32 scores (B, K, G, Sq, Sk) of the plain version: an
+    additive -1e30 for keys hidden by the top-left causal mask or the
+    window."""
     B, Sq, H, D = q.shape
-    Sk, K, Dv = v.shape[1], v.shape[2], v.shape[3]
-    G = H // K
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qh = q.float().reshape(B, Sq, K, G, D)
+    Sk, K = k.shape[1], k.shape[2]
+    qh = q.float().reshape(B, Sq, K, H // K, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qh, k.float()) * scale
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
@@ -57,42 +59,114 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias = bias + NEG * (q_pos < k_pos)
     if window is not None:
         bias = bias + NEG * (q_pos - k_pos >= window)
-    p = torch.softmax(s + bias, dim=-1)
+    return s + bias
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          scale: float | None = None,
+                          with_lse: bool = False):
+    """Dense f32 attention with the kernel's masking: an additive -1e30
+    for keys hidden by the top-left causal mask or the window.
+
+    q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv), H a multiple
+    of K.  Returns (B, Sq, H, Dv) in q.dtype, and with ``with_lse`` also
+    each row's f32 log-sum-exp over its scaled, masked scores, (B, H,
+    Sq)."""
+    B, Sq, H, D = q.shape
+    Dv = v.shape[3]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = _plain_scores(q, k, causal, window, scale)
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(B, Sq, H, Dv).to(q.dtype)
+    out = o.reshape(B, Sq, H, Dv).to(q.dtype)
+    if with_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return out
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
+                              window: int | None = None,
+                              scale: float | None = None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention_plain` at
+    ``dout``, dense in f32: P recomputed from ``lse`` (B, H, Sq),
+    D_i = rowsum(dout ⊙ out), dS = P ⊙ (dout·Vᵀ − D)·scale, dk and dv
+    summed over each kv head's group.  In the inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, K, Dv = v.shape[1], v.shape[2], v.shape[3]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    p = torch.exp(_plain_scores(q, k, causal, window, scale)
+                  - lse.float().reshape(B, K, G, Sq, 1))
+    do = dout.float().reshape(B, Sq, K, G, Dv)
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", do,
+                         out.float().reshape(B, Sq, K, G, Dv))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds,
+                      q.float().reshape(B, Sq, K, G, D))
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, with_lse: bool = False):
     """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv) — model
     layout.  The value head dim Dv may differ from D (MLA).
 
-    On a CUDA tensor: launches the kernel on the current stream (the
-    executor's compute stream) and counts the launch in
-    ``flash_attention.launches``; raises on what the kernel does not take.
-    On a CPU tensor: :func:`flash_attention_plain`.
+    When an input requires a gradient (and grad mode is on), the call
+    goes through :class:`FlashAttention`, whose backward is
+    :func:`flash_attention_bwd`.  Otherwise, on a CUDA tensor: launches
+    the kernel on the current stream (the executor's compute stream) and
+    counts the launch in ``flash_attention.launches``; raises on what the
+    kernel does not take.  On a CPU tensor: :func:`flash_attention_plain`.
+    ``with_lse`` also returns the rows' f32 log-sum-exp (B, H, Sq)
+    (no autograd).
     """
+    scale = _check(q, k, v, window, scale)
+    if not with_lse and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale, with_lse)
+
+
+def _check(q, k, v, window, scale) -> float:
+    """Shapes and window of a call; returns the scale (default 1/√D)."""
     B, Sq, H, D = q.shape
-    _, Sk, K, Dv = v.shape
     if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D
-            or H % K):
+            or H % k.shape[2]):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be > 0, got {window}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    return scale if scale is not None else 1.0 / math.sqrt(D)
+
+
+def _check_cuda(name, tensors) -> None:
+    """One CUDA device and one dtype the kernels take, for all of
+    ``tensors``."""
+    t0 = tensors[0]
+    if t0.device.type != "cuda" or any(t.device != t0.device
+                                       for t in tensors):
+        raise ValueError(f"{name}: tensors on "
+                         f"{', '.join(str(t.device) for t in tensors)}; the "
+                         f"kernel needs one CUDA device")
+    if t0.dtype not in _DTYPES or any(t.dtype != t0.dtype for t in tensors):
+        raise ValueError(f"{name}: dtypes "
+                         f"{', '.join(str(t.dtype) for t in tensors)}; the "
+                         f"kernel takes one of float32, bfloat16 for all")
+
+
+def _forward(q, k, v, causal, window, scale, with_lse):
+    B, Sq, H, D = q.shape
+    _, Sk, K, Dv = v.shape
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention: tensors on {q.device}, "
-                         f"{k.device}, {v.device}; the kernel needs one "
-                         f"CUDA device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}; the kernel takes one of float32, "
-                         f"bfloat16 for all three")
+                                     scale=scale, with_lse=with_lse)
+    _check_cuda("flash_attention", (q, k, v))
     if D % 8 or D > 256 or Dv % 8 or Dv > 256:
         raise ValueError(f"flash_attention: head dims {D}, {Dv} are not "
                          f"multiples of 8 up to 256")
@@ -107,8 +181,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: the bf16 kernel is not built "
                          f"for head dims D {D}, Dv {Dv}")
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     fn = function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(),
              _DTYPES[q.dtype], B, H, K, Sq, Sk, D, Dv,
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
@@ -118,8 +195,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
-#: launches of the CUDA kernel (never of the plain version)
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: int | None = None,
+                        scale: float | None = None):
+    """The gradients (dq, dk, dv) of ``out = flash_attention(q, k, v)`` at
+    ``dout``, given the forward's ``lse`` (B, H, Sq) f32.  Shapes as the
+    forward's, out and dout (B, Sq, H, Dv); dq, dk, dv in the inputs'
+    dtype.
+
+    On a CUDA tensor: launches ``csrc/flash_attention_bwd.cu`` (its three
+    passes, and the GQA reduction, on the current stream) and counts the
+    call in ``flash_attention_bwd.launches``; raises on what the kernel
+    does not take.  On a CPU tensor: :func:`flash_attention_bwd_plain`.
+    """
+    scale = _check(q, k, v, window, scale)
+    B, Sq, H, D = q.shape
+    _, Sk, K, Dv = v.shape
+    if tuple(out.shape) != (B, Sq, H, Dv) or out.shape != dout.shape \
+            or tuple(lse.shape) != (B, H, Sq):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
+                         f"do not fit q {tuple(q.shape)}, v {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         scale=scale)
+    _check_cuda("flash_attention_bwd", (q, k, v, out, dout))
+    if lse.device != q.device or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd: lse must be f32 on q's device")
+    if D % 8 or D > 256 or Dv % 8 or Dv > 256:
+        raise ValueError(f"flash_attention_bwd: head dims {D}, {Dv} are not "
+                         f"multiples of 8 up to 256")
+    q, k, v, out, dout, lse = (t.contiguous()
+                               for t in (q, k, v, out, dout, lse))
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    dk_ws = dv_ws = None
+    if H > K:        # per-head partials, summed over each group in order
+        dk_ws = torch.empty((B, Sk, H, D), dtype=torch.float32, device=dev)
+        dv_ws = torch.empty((B, Sk, H, Dv), dtype=torch.float32, device=dev)
+    fn = function("flash_attention_bwd", "flash_attention_bwd",
+                  _BWD_ARGTYPES)
+    err = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq,
+                                      dk, dv)),
+             None if dk_ws is None else dk_ws.data_ptr(),
+             None if dv_ws is None else dv_ws.data_ptr(),
+             _DTYPES[q.dtype], B, H, K, Sq, Sk, D, Dv, int(causal),
+             window or 0, scale, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward: the forward keeps q, k, v, out
+    and the rows' log-sum-exp (linear in S), the backward recomputes the
+    probabilities from them.  Kernels on CUDA tensors, plain versions on
+    CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _forward(q, k, v, causal, window, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+#: launches of the CUDA kernels (never of the plain versions)
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

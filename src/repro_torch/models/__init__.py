@@ -2,13 +2,14 @@
 MLA, RG-LRU, MoE and xLSTM blocks) with the hand-written kernels, the
 stub frontends, and the weight conversion from the JAX reference."""
 from . import convert, frontends, layers, moe, recurrent, transformer, xlstm
-from .convert import params_from_numpy
+from .convert import params_from_numpy, train_state_from_numpy
 from .transformer import (
     cast_params,
     decode_step,
     forward,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
     reset_cache,
 )
@@ -16,6 +17,7 @@ from .transformer import (
 __all__ = [
     "convert", "frontends", "layers", "moe", "recurrent", "transformer",
     "xlstm",
-    "params_from_numpy", "cast_params", "decode_step", "forward",
-    "init_cache", "init_params", "prefill", "reset_cache",
+    "params_from_numpy", "train_state_from_numpy", "cast_params",
+    "decode_step", "forward", "init_cache", "init_params", "loss_fn",
+    "prefill", "reset_cache",
 ]

@@ -14,7 +14,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "train_state_from_numpy"]
 
 
 def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None):
@@ -29,3 +29,16 @@ def params_from_numpy(tree: Any, device, dtype: torch.dtype | None = None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
+
+
+def train_state_from_numpy(tree: Any, device) -> dict:
+    """A train state ``{"params", "opt": {"m", "v", "step"}}`` (the
+    reference's ``init_train_state`` layout, as numpy arrays) as tensors
+    on ``device``: the params keep their dtypes, m and v are f32 and the
+    step an int32 scalar, as ``repro_torch.training`` keeps them."""
+    opt = tree["opt"]
+    return {"params": params_from_numpy(tree["params"], device),
+            "opt": {"m": params_from_numpy(opt["m"], device, torch.float32),
+                    "v": params_from_numpy(opt["v"], device, torch.float32),
+                    "step": torch.tensor(int(np.asarray(opt["step"])),
+                                         dtype=torch.int32, device=device)}}

@@ -105,7 +105,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     One query token (decode) goes to the decode-attention kernel: rows
     below ``valid_len`` are attended (default 1: a lone token without a
     cache sees itself).  A prompt goes to the flash-attention kernel
-    (top-left causal, optional ``window``).  Windowed decode on a cache
+    (top-left causal, optional ``window``); under autograd through its
+    Function, whose backward is the flash backward kernel (the
+    reference's custom VJP).  Windowed decode on a cache
     that is not a ring is not ported yet; a prompt at a cache offset
     (chunked prefill) raises in :func:`attn_forward`.
     """

@@ -6,7 +6,11 @@ softmax, top-k, renormalised gates and first-come-first-served capacity
 slots in one launch, in place of the reference's stable argsort
 (``repro.models.moe._group_dispatch``).  The semantics are the
 reference's: positions in flattened (token, k) order, ``slot = e·C +
-pos``, and a dropped entry adds zeros at its expert's row 0.  The expert
+pos``, and a dropped entry adds zeros at its expert's row 0.  Under
+autograd the gates are recomputed from the logits (softmax, gathered at
+the kernel's experts, renormalised, as the reference's ``softmax →
+top_k``), so the router gets its gradient; experts, slots and keep stay
+the kernel's integers.  The expert
 products over the (E, C, d) buffer are plain batched matmuls, as the
 reference leaves them to XLA.  Shared experts run densely for every
 token.  The reference's expert-parallel shard_map path waits for the
@@ -69,7 +73,10 @@ def _capacity(cfg, n_tokens: int) -> int:
 
 
 def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False):
-    """Route one token group.  xg: (Tg, d); router_w: f32 (d, E).
+    """Route one token group.  xg: (Tg, d) in the compute dtype;
+    router_w: f32 (d, E) (the reference's ``router.astype(f32)``, so the
+    logits are the f32 product of the two, as its promoted
+    ``(xg @ router_w).astype(f32)``).
 
     Returns (buf (E, C, d), slot, keep, gate, aux), the entries in
     flattened (token, k) order; the load-balance ``aux`` is None unless
@@ -78,7 +85,12 @@ def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False):
     Tg, d = xg.shape
     C = _capacity(cfg, Tg)
     logits = xg.float() @ router_w
-    eids, gates, slots, keep = moe_gating(logits, top_k=m.top_k, capacity=C)
+    eids, gates, slots, keep = moe_gating(logits.detach(), top_k=m.top_k,
+                                          capacity=C)
+    if logits.requires_grad:
+        # the kernel's gates again, with the router's gradient
+        g = torch.softmax(logits, dim=-1).gather(1, eids.long())
+        gates = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
 
     aux = _load_balance_aux(cfg, logits, eids) if aux else None
     slot = slots.reshape(-1).long()

@@ -10,8 +10,9 @@ RG-LRU (De et al., arXiv:2402.19427 eq. 5–7):
 A prompt runs the recurrence through the hand-written RG-LRU scan
 kernel (``repro_torch.kernels.rglru_scan``; its plain version on a CPU
 tensor) in place of the reference's associative scan
-(``repro.models.recurrent``); one decode token is the O(1) elementwise
-step.  The state (conv tail, h) is updated in place by the caller.
+(``repro.models.recurrent``), and under autograd through its Function,
+whose backward is the reverse-time scan kernel; one decode token is the
+O(1) elementwise step.  The state (conv tail, h) is updated in place by the caller.
 """
 from __future__ import annotations
 

@@ -12,6 +12,16 @@ names sections), ``attn_local`` (ring cache), ``mla`` (latent cache),
 ``none``.  A stub frontend's embeddings (``models.frontends``) go in as
 ``forward(extra_embeds=...)``.
 
+Training runs :func:`forward` without caches under a rematerialisation
+policy (the reference's ``jax.checkpoint`` around its scan body):
+``"full"`` recomputes each super-block in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
+outputs of the plain matrix products (``aten.mm``; no batched ones, as
+the reference's ``checkpoint_dots_with_no_batch_dims``) and recomputes
+the rest, ``"none"`` keeps everything.  A recomputed block launches its
+forward kernels again.  :func:`loss_fn` is the reference's next-token
+cross entropy plus the MoE aux.
+
 A decode step takes its cache position as a device tensor (``pos``):
 every cache row it writes, its attention mask and its RoPE positions
 are computed from it on the device, so the step holds no host scalar
@@ -20,9 +30,13 @@ and can be captured in a CUDA graph and replayed
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import LayerGroup, ModelConfig
 from . import layers as L
@@ -201,6 +215,18 @@ def reset_cache(cfg: ModelConfig, caches: list) -> list:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+def _unstack(tree, count: int) -> list:
+    """The ``count`` per-layer trees of a tree stacked over ``count``:
+    views made by one ``unbind`` per leaf.  Under autograd its backward is
+    one stack per leaf; indexing layer by layer instead would build a
+    full-size gradient of the stacked leaf for every layer and add them
+    up, count times the traffic."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(count)]
+    return list(tree.unbind(0))
+
+
 def _layer(tree, layer: int):
     """One layer's slice of a tree stacked over ``count`` (views; a host
     int such as a cache's ``length`` is shared by every layer)."""
@@ -241,18 +267,57 @@ def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
     return x, aux
 
 
+#: the products "dots" keeps: plain 2-d matrix products (``x @ W`` folds
+#: its leading dims into one ``mm``); batched ones are recomputed
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+REMAT_POLICIES = ("full", "dots", "none")
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _super_block(cfg, g: LayerGroup, lp: Params, x, positions,
+                 want_aux: bool):
+    """One pass of the group's pattern without caches (training): the
+    reference's scan body.  Returns x and the summed MoE aux (None when
+    not asked for or without MoE)."""
+    total = None
+    for i, mixer in enumerate(g.pattern):
+        x, aux = _block_forward(cfg, mixer, g.ffn_of(i), lp[f"sub{i}"], x,
+                                positions, None, {}, want_aux)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return x, total
+
+
 def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
-               steps, auxes: list | None):
+               steps, auxes: list | None, remat_policy: str = "none"):
     """Loop over the group's super-blocks, each running the pattern's
-    sub-layers in order (the reference's scan body).  gcache: the group's
-    cache dict or None; returns (x, new_gcache).  Each MoE layer's aux is
-    appended to ``auxes`` when it is a list."""
+    sub-layers in order (the reference's scan body), under
+    ``remat_policy`` when there are no caches.  gcache: the group's cache
+    dict or None; returns (x, new_gcache).  Each MoE aux is appended to
+    ``auxes`` when it is a list."""
+    layers = _unstack(gp, g.count)
+    if gcache is None and remat_policy != "none":
+        context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                        _keep_dots)
+                      if remat_policy == "dots" else None)
+        kw = {"context_fn": context_fn} if context_fn else {}
+        for lp in layers:
+            x, aux = checkpoint(_super_block, cfg, g, lp, x,
+                                positions, auxes is not None,
+                                use_reentrant=False, **kw)
+            if aux is not None:
+                auxes.append(aux)
+        return x, None
     for layer in range(g.count):
         for i, mixer in enumerate(g.pattern):
             key = f"sub{i}"
             c = None if gcache is None else _layer(gcache[key], layer)
             x, aux = _block_forward(cfg, mixer, g.ffn_of(i),
-                                    _layer(gp[key], layer), x, positions, c,
+                                    layers[layer][key], x, positions, c,
                                     steps, auxes is not None)
             if aux is not None:
                 auxes.append(aux)
@@ -286,7 +351,8 @@ def _decode_steps(caches, pos, batch: int) -> dict:
 
 def forward(cfg: ModelConfig, params: Params, tokens=None, *,
             extra_embeds=None, caches=None, positions=None,
-            logits_slice: bool = False, pos=None, aux: bool = False):
+            logits_slice: bool = False, pos=None, aux: bool = False,
+            remat_policy: str = "none"):
     """Run the decoder.
 
     tokens: (B, S) int ids, or None for embeddings alone.  extra_embeds:
@@ -300,10 +366,14 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     device tensor (default: made from the caches' host length); the
     default positions come from it.  aux: also return the MoE
     load-balance loss summed over layers, as the reference's third
-    result.
+    result.  remat_policy: ``"full"``, ``"dots"`` or ``"none"`` (module
+    docstring); it acts only without caches.
 
     Returns (logits, new_caches), and the aux when asked for.
     """
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r}: one of "
+                         f"{REMAT_POLICIES}")
     cdt = getattr(torch, cfg.compute_dtype)
     parts = []
     if extra_embeds is not None:
@@ -331,7 +401,7 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     for gi, g in enumerate(cfg.groups):
         gcache = caches[gi] if caches is not None else None
         x, nc = _run_group(cfg, g, params["groups"][gi], x, positions,
-                           gcache, steps, auxes)
+                           gcache, steps, auxes, remat_policy)
         if caches is not None:
             new_caches.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -354,6 +424,31 @@ def _cache_length(caches) -> int:
             if "length" in sub:
                 return sub["length"]
     return 0
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
+            remat_policy: str = "full"):
+    """Next-token cross entropy (+ MoE aux), as the reference's
+    ``loss_fn``.  batch: tokens (B, S), labels (B, S) with negative =
+    masked (-100), optional extra_embeds (B, P, d) whose P positions are
+    sliced off the logits.  Returns (loss + aux, {"loss", "aux_loss",
+    "tokens"})."""
+    extra = batch.get("extra_embeds")
+    logits, _, aux = forward(cfg, params, batch["tokens"],
+                             extra_embeds=extra, remat_policy=remat_policy,
+                             aux=True)
+    labels = batch["labels"]
+    if extra is not None:
+        logits = logits[:, extra.shape[1]:]
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(mask, nll, 0.0)
+    denom = mask.sum().clamp(min=1)
+    loss = nll.sum() / denom
+    return loss + aux, {"loss": loss, "aux_loss": aux,
+                        "tokens": mask.sum().float()}
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, caches, *,

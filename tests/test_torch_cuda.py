@@ -12,9 +12,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (decode_attention, decode_attention_plain,  # noqa: E402
-                                 flash_attention, flash_attention_plain,
-                                 moe_gating, moe_gating_plain, rglru_scan,
-                                 rglru_scan_plain)
+                                 flash_attention, flash_attention_bwd,
+                                 flash_attention_bwd_plain,
+                                 flash_attention_plain, moe_gating,
+                                 moe_gating_plain, rglru_scan, rglru_scan_bwd,
+                                 rglru_scan_bwd_plain, rglru_scan_plain)
 from repro_torch.kernels.moe_gating.ops import (  # noqa: E402
     gating_launch_shape, max_cluster_blocks)
 from repro_torch.kernels.rglru_scan.ops import (TILE_ROWS,  # noqa: E402
@@ -804,3 +806,172 @@ def test_engine_graphs_under_the_executor_match_eager_steps(cuda, arch):
     assert after["decode_attention"] - before["decode_attention"] \
         == attn * steps
     assert after["moe_gating"] - before["moe_gating"] == moe * (steps + 4)
+
+
+# ---------------------------------------------------------------------------
+# training: the LSE output, the backward kernels, autograd, snapshots
+# ---------------------------------------------------------------------------
+BWD_SHAPES = [
+    # B, H, K, S, D, Dv, window
+    (2, 4, 2, 130, 64, 64, None),     # GQA, ragged S
+    (1, 36, 36, 256, 64, 64, None),   # minicpm's heads
+    (1, 10, 1, 300, 256, 256, 128),   # recurrentgemma: MQA, D 256, window
+    (2, 4, 4, 97, 128, 128, None),    # D 128
+    (1, 8, 2, 70, 192, 128, None),    # Dv != D
+    (1, 4, 2, 33, 16, 16, 5),         # the reduced configs' D 16
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,D,Dv,win", BWD_SHAPES)
+def test_flash_lse_matches_plain(cuda, dtype, B, H, K, S, D, Dv, win):
+    rng = np.random.default_rng(20)
+    q, k = (_randn(rng, (B, S, n, D), dtype, cuda) for n in (H, K))
+    v = _randn(rng, (B, S, K, Dv), dtype, cuda)
+    out, lse = flash_attention(q, k, v, window=win, with_lse=True)
+    ref, ref_lse = flash_attention_plain(*_f32(q, k, v), window=win,
+                                         with_lse=True)
+    _close(out, ref, dtype)
+    _close(lse, ref_lse, torch.float32)
+    # serving's call (no lse) writes the same out
+    assert torch.equal(flash_attention(q, k, v, window=win), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,S,D,Dv,win", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, B, H, K, S, D, Dv, win):
+    rng = np.random.default_rng(21)
+    q, k = (_randn(rng, (B, S, n, D), dtype, cuda) for n in (H, K))
+    v = _randn(rng, (B, S, K, Dv), dtype, cuda)
+    dout = _randn(rng, (B, S, H, Dv), dtype, cuda)
+    out, lse = flash_attention_plain(*_f32(q, k, v), window=win,
+                                     with_lse=True)
+    out = out.to(dtype)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, dout, lse, window=win)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(*_f32(q, k, v, out, dout), lse,
+                                     window=win)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        _close(g, w, dtype)
+    # deterministic: no atomics
+    again = flash_attention_bwd(q, k, v, out, dout, lse, window=win)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,H,K,S,D,win", [(2, 4, 2, 100, 64, None),
+                                           (1, 10, 1, 200, 256, 64)])
+def test_flash_autograd_matches_autograd_of_plain(cuda, B, H, K, S, D, win):
+    rng = np.random.default_rng(22)
+    ins = [_randn(rng, (B, S, n, D), torch.float32, cuda) for n in (H, K, K)]
+    dout = _randn(rng, (B, S, H, D), torch.float32, cuda)
+    grads = []
+    for fn in (flash_attention, flash_attention_plain):
+        ts = [t.clone().requires_grad_(True) for t in ins]
+        fn(*ts, window=win).backward(dout)
+        grads.append([t.grad for t in ts])
+    for g, w in zip(*grads):
+        _close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,dr", [
+    (1, 3072, 2560),                  # recurrentgemma's train shape
+    (2, 300, 64),                     # a ragged last tile
+    (1, 1, 256),                      # one step: h_{-1} = h0 only
+    (3, 37, 100),                     # dr·4 not 16-byte: thread per channel
+])
+def test_rglru_scan_bwd_kernel_matches_plain(cuda, dtype, B, S, dr):
+    rng = np.random.default_rng(23)
+    dy = _randn(rng, (B, S, dr), dtype, cuda)
+    a = torch.sigmoid(_randn(rng, (B, S, dr), torch.float32, cuda)).to(dtype)
+    h = _randn(rng, (B, S, dr), dtype, cuda)
+    h0 = _randn(rng, (B, dr), torch.float32, cuda)
+    before = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(dy, a, h, h0)
+    torch.cuda.synchronize()
+    assert rglru_scan_bwd.launches == before + 1
+    want = rglru_scan_bwd_plain(dy, a, h, h0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        # each step rounds apart, as the plain version: bit for bit
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_rglru_scan_autograd_matches_autograd_of_plain(cuda):
+    rng = np.random.default_rng(24)
+    x = _randn(rng, (2, 500, 256), torch.float32, cuda)
+    a = torch.sigmoid(_randn(rng, (2, 500, 256), torch.float32, cuda))
+    h0 = _randn(rng, (2, 256), torch.float32, cuda)
+    dy = _randn(rng, (2, 500, 256), torch.float32, cuda)
+    grads = []
+    for fn in (rglru_scan, rglru_scan_plain):
+        ts = [t.clone().requires_grad_(True) for t in (x, a, h0)]
+        fn(*ts).backward(dy)
+        grads.append([t.grad for t in ts])
+    for g, w in zip(*grads):
+        _close(g, w, torch.float32)
+
+
+def test_async_save_snapshot_survives_the_next_in_place_step(cuda,
+                                                              tmp_path):
+    """The snapshot's copies are enqueued before the next step's in-place
+    update on the same stream, so the files hold the state as it was."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import Executor
+    from repro_torch.training import checkpoint, init_train_state
+
+    cfg = reduced(get_config("minicpm-2b"))
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    flat = checkpoint._flatten(state)
+    want = {k: t.detach().cpu().clone() for k, t in flat.items()}
+    with Executor(num_workers=2, devices=[cuda]) as ex:
+        fut = checkpoint.async_save(ex, str(tmp_path), 1, state)
+        with torch.no_grad():
+            for t in flat.values():
+                if t.is_floating_point():
+                    t.mul_(-3.0).add_(1.0)
+        fut.result(timeout=120)
+    restored, step = checkpoint.restore(str(tmp_path), state)
+    assert step == 1
+    for k, t in checkpoint._flatten(restored).items():
+        assert t.device == flat[k].device
+        assert torch.equal(t.cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "recurrentgemma-2b",
+                                  "llama4-maverick-400b-a17b"])
+def test_remat_policies_give_the_same_grads_on_the_card(cuda, arch):
+    """The forward and backward kernels under every remat policy (a
+    recomputed block launches its forward kernels again; "dots" runs them
+    under selective checkpointing): the same loss and gradients."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticSource
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.training.checkpoint import _flatten, _unflatten
+
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              compute_dtype="float32")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    b = SyntheticSource(cfg.vocab_size).batch(0, 2, 40)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in b.items()}
+    runs = []
+    for remat in ("none", "full", "dots"):
+        ps = {k: t.detach().clone().requires_grad_(True)
+              for k, t in _flatten(params).items()}
+        tree = _unflatten(params, ps)
+        loss, _ = loss_fn(cfg, tree, batch, remat_policy=remat)
+        loss.backward()
+        runs.append((loss.detach(), {k: t.grad for k, t in ps.items()}))
+    (l0, g0) = runs[0]
+    for loss, grads in runs[1:]:
+        _close(loss, l0, torch.float32)
+        for k in g0:
+            _close(grads[k], g0[k], torch.float32)
+
