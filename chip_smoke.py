@@ -83,8 +83,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 Phase 3 also holds the forward's log-sum-exp output and the two
 backward kernels (``flash_attention_bwd`` at the two train shapes in
-bf16 and a small f32 one, with SDPA's backward as the yardstick and its
-backend named; ``rglru_scan_bwd`` at recurrentgemma's train shape in f32
+bf16, on the tensor cores, and a small f32 one, with SDPA's backward as
+the yardstick and its backend named, each pass's device time and the
+launch shape, and the tensor-core kernels' registers and spills from
+the build; ``rglru_scan_bwd`` at recurrentgemma's train shape in f32
 and bf16) against their plain versions.  Phase 4 also trains reduced
 minicpm-2b, recurrentgemma and llama4 (f32 compute) for 3 steps on the
 card and on the CPU from one state (per-step losses within 1e-4, params
@@ -102,6 +104,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -176,9 +179,10 @@ def _bounds(nbytes: float, flops: float, dt: str) -> tuple[float, str]:
     return bounds[bound_by], bound_by
 
 
-def kernel_phase(torch, dev) -> dict:
+def kernel_phase(torch, dev, logs: dict) -> dict:
     """Every kernel case of phase 3; returns the case chosen for each
-    kernel's entry of the ``{"kernels": ...}`` line."""
+    kernel's entry of the ``{"kernels": ...}`` line.  ``logs``: the
+    build's compiler output per source."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
@@ -192,7 +196,8 @@ def kernel_phase(torch, dev) -> dict:
     chosen.update(_decode_cases(torch, dev, randn, flush))
     chosen.update(_rglru_cases(torch, dev, randn, flush))
     chosen.update(_gating_cases(torch, dev, randn, flush))
-    chosen.update(_flash_bwd_cases(torch, dev, randn, flush))
+    chosen.update(_flash_bwd_cases(torch, dev, randn, flush,
+                                   logs.get("flash_attention_bwd")))
     chosen.update(_rglru_bwd_cases(torch, dev, randn, flush))
     return chosen
 
@@ -450,7 +455,7 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
     return chosen
 
 
-def _flash_bwd_cases(torch, dev, randn, flush) -> dict:
+def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
     """The forward's log-sum-exp output and the flash backward at the two
     train paths' shapes (minicpm-2b: B 4, S 1024, H = K = 36, D 64;
     recurrentgemma-2b: B 1, S 3072, H 10, K 1, D 256, window 2048; bf16)
@@ -458,11 +463,18 @@ def _flash_bwd_cases(torch, dev, randn, flush) -> dict:
     the same inputs.  Yardstick: SDPA's backward on the same q, k, v and
     dout (kv heads repeated to H), the backend named.  The bound counts
     the five products a flash backward needs (S again, dP, dV, dK, dQ:
-    2.5x the forward's), not the kernel's two recomputations."""
+    2.5x the forward's), not the kernels' recomputations and bf16 hi/lo
+    splits.  A line of its own per case gives the launch shape and each
+    pass's device time (profiler); one more, the tensor-core kernels'
+    registers and spills from the build's ``-Xptxas -v`` (``log``)."""
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_plain,
                                      flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import bwd_launch_shape
+    from repro_torch.launch.probe_flash_bwd import pass_ms
 
+    print(f"  flash_attention_bwd tensor-core kernels (ptxas): "
+          f"{_ptxas_report(log, ('dkdv_tc_kernel', 'dq_tc_kernel'))}")
     chosen = {}
     for name, B, H, K, S, D, win, dt in [
             ("minicpm-2b", 4, 36, 36, 1024, 64, None, "bfloat16"),
@@ -509,9 +521,36 @@ def _flash_bwd_cases(torch, dev, randn, flush) -> dict:
               f"window={win} {dt}: lse err {lse_err}; {err} {ATOL} "
               f"{RTOL[dt]} {row['ms']} {row['plain_ms']} {lib} (SDPA "
               f"backward, {backend}) {bound} {bound_by}")
+        passes = pass_ms(lambda: flash_attention_bwd(
+            q, k, v, out, dout, lse, window=win, scale=scale))
+        print(f"  flash_attention_bwd {name} passes (device ms a call): "
+              f"{passes}; {bwd_launch_shape(D, D, dtype)}")
         if name == "minicpm-2b":
             chosen["flash_attention_bwd"] = row
     return chosen
+
+
+def _ptxas_report(log, kernels) -> str:
+    """Registers and spills of each function in ``-Xptxas -v`` output
+    whose mangled name holds one of ``kernels``, by name and template
+    arguments."""
+    if not log:
+        return "not compiled in this run"
+    found, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = next((k for k in kernels if k in m.group(1)), None)
+            args = re.search(r"I(L[^E]*E(?:L[^E]*E)*)E", m.group(1))
+            name = None if k is None else k + (
+                "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+                if args else "")
+        elif name and "spill stores" in line:
+            found.append(f"{name}: {line.strip()}")
+        elif name and "registers" in line:
+            found[-1] += f"; {line.split(':', 1)[1].strip()}"
+            name = None
+    return " | ".join(found) or "no such function in the log"
 
 
 def _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush):
@@ -1079,7 +1118,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    chosen = kernel_phase(torch, dev)
+    chosen = kernel_phase(torch, dev, logs)
     reference_phase(torch, dev)
     train_reference_phase(torch, dev)
     launches = {}

@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface — no
 PyTorch headers, so a build takes seconds.  Libraries land in
 ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edit
-rebuilds and an unchanged source is compiled once.  Several sources are
+``.gitignore``), named by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edit rebuilds and an unchanged
+source is compiled once.  Several sources are
 compiled by one ``nvcc`` each, all started together.
 """
 from __future__ import annotations
@@ -48,7 +49,9 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    source = (_CSRC / f"{name}.cu").read_bytes()
+    # the headers a source may include count as part of it
+    source = b"".join(path.read_bytes() for path in
+                      [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(source + " ".join(_FLAGS).encode()).hexdigest()
     return _BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -16,12 +16,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from .._build import function
 
-__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+__all__ = ["BwdPass", "BwdShape", "FlashAttention", "bwd_launch_shape",
+           "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_plain"]
 
 NEG = -1e30
@@ -34,6 +36,65 @@ _BWD_ARGTYPES = [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P]
 #: (``csrc/flash_attention.cu``, ``tc::run``): D 8-64, 65-128 and 129-256
 #: with Dv = D, and MLA's D 192 with Dv 128
 _TC_BOXES = {(1, 1), (2, 2), (4, 4), (3, 2)}
+
+
+#: the backward's tensor-core kernels: rows of a warpgroup and of a
+#: streamed tile, and the dynamic shared memory a block may have
+_BWD_TILE, _SMEM_MAX = 64, 227 * 1024
+
+
+class BwdPass(NamedTuple):
+    """How one pass of ``csrc/flash_attention_bwd.cu`` is launched."""
+    rows: int         # rows a block owns: kv rows (dK/dV), q rows (dQ)
+    tile: int         # rows of each tile streamed past them
+    stages: int       # tiles in the block's ring
+    smem: int         # dynamic shared memory of a block, bytes
+    warpgroups: int   # of 128 threads, the producer's included
+
+
+class BwdShape(NamedTuple):
+    """The launch shape of the flash backward for one (D, Dv, dtype)."""
+    route: str                # "tc": bf16 on wgmma; "simt": f32 FMAs
+    boxes: tuple[int, int]    # 64-column boxes of D and Dv ("tc")
+    dkdv: BwdPass
+    dq: BwdPass
+
+
+def bwd_launch_shape(D: int, Dv: int, dtype: torch.dtype) -> BwdShape:
+    """The backward's launch shape, as ``csrc/flash_attention_bwd.cu``
+    computes it (``tc::KvLayout``, ``tc::QLayout``; ``run`` for f32).
+
+    bf16: the forward's box pairs only (``_TC_BOXES``); any other raises.
+    dK/dV: one 64-row kv tile per block of a producer and two consumer
+    warpgroups, Q, dO and row-stat stages of 64 q rows, as many as fit
+    (at most 4) beside K, V and the 16 KB Pᵀ hand-over.  dQ: 64 q rows
+    per consumer warpgroup, two where their Q and dO tiles and two K, V
+    stages fit, else one.  f32: the CUDA-core tiles (BQ, BK) by the widest
+    head dim, 256 threads, one tile at a time."""
+    if dtype == torch.float32:
+        w = max(D, Dv)
+        bq, bk = (64, 64) if w <= 64 else (32, 64) if w <= 128 else (64, 32)
+        smem = 4 * (bk * (D + 1) + bk * (Dv + 1) + bq * (D + 1)
+                    + bq * (Dv + 1) + 2 * bq * (bk + 1) + 2 * bq)
+        return BwdShape("simt", (0, 0), BwdPass(bk, bq, 1, smem, 2),
+                        BwdPass(bq, bk, 1, smem, 2))
+    boxes = (-(-D // 64), -(-Dv // 64))
+    if dtype != torch.bfloat16 or boxes not in _TC_BOXES:
+        raise ValueError(f"flash_attention_bwd: the bf16 kernels are not "
+                         f"built for head dims D {D}, Dv {Dv} ({dtype})")
+    box = _BWD_TILE * 128                 # bytes of a 64-row box
+    nc, ncv = boxes
+    # alignment slack and barriers, K, V, the hand-over; a stage: Q, dO, stats
+    fixed = 2048 + (nc + ncv) * box + _BWD_TILE * _BWD_TILE * 4
+    stage = (nc + ncv) * box + _BWD_TILE * 8
+    st = min(4, (_SMEM_MAX - fixed) // stage)
+    dkdv = BwdPass(_BWD_TILE, _BWD_TILE, st, fixed + st * stage, 3)
+    cons = 2 if 2048 + 4 * (nc + ncv) * box <= _SMEM_MAX else 1
+    fixed = 2048 + cons * (nc + ncv) * box
+    st = min(4, (_SMEM_MAX - fixed) // ((nc + ncv) * box))
+    dq = BwdPass(cons * _BWD_TILE, _BWD_TILE, st,
+                 fixed + st * (nc + ncv) * box, cons + 1)
+    return BwdShape("tc", boxes, dkdv, dq)
 
 
 def _tma_ready(t: torch.Tensor) -> bool:
@@ -207,9 +268,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dtype.
 
     On a CUDA tensor: launches ``csrc/flash_attention_bwd.cu`` (its three
-    passes, and the GQA reduction, on the current stream) and counts the
-    call in ``flash_attention_bwd.launches``; raises on what the kernel
-    does not take.  On a CPU tensor: :func:`flash_attention_bwd_plain`.
+    passes, and the GQA reduction, on the current stream; bf16 on the
+    tensor cores, f32 on the CUDA cores, see :func:`bwd_launch_shape`) and
+    counts the call in ``flash_attention_bwd.launches``; raises on what
+    the kernel does not take.  On a CPU tensor:
+    :func:`flash_attention_bwd_plain`.
     """
     scale = _check(q, k, v, window, scale)
     B, Sq, H, D = q.shape
@@ -229,8 +292,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if D % 8 or D > 256 or Dv % 8 or Dv > 256:
         raise ValueError(f"flash_attention_bwd: head dims {D}, {Dv} are not "
                          f"multiples of 8 up to 256")
+    if q.dtype == torch.bfloat16:
+        bwd_launch_shape(D, Dv, q.dtype)     # raises on a pair not built
     q, k, v, out, dout, lse = (t.contiguous()
                                for t in (q, k, v, out, dout, lse))
+    if q.dtype == torch.bfloat16 and not all(map(_tma_ready,
+                                                 (q, k, v, out, dout))):
+        raise ValueError("flash_attention_bwd: bf16 tensors are read in "
+                         "16-byte pieces: a 16-byte aligned base")
     dev = q.device
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)

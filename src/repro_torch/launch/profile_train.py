@@ -30,9 +30,9 @@ __all__ = ["main", "group_of"]
 #: the port's kernels (``kernels/csrc/*.cu``), all in anonymous
 #: namespaces (PyTorch's own have an ``at::`` in their names)
 PORT_KERNELS = ("flash_tc_kernel", "flash_fwd_kernel", "dkdv_kernel",
-                "dq_kernel", "delta_kernel", "reduce_kernel", "scan_kernel",
-                "rglru_kernel", "bwd_kernel", "gating_kernel",
-                "decode_kernel")
+                "dq_kernel", "dkdv_tc_kernel", "dq_tc_kernel", "delta_kernel",
+                "delta_tc_kernel", "reduce_kernel", "scan_kernel",
+                "rglru_kernel", "bwd_kernel", "gating_kernel", "decode_kernel")
 #: substrings of cuBLAS/CUTLASS matrix-product kernel names
 MATMUL_KERNELS = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 

@@ -819,6 +819,8 @@ BWD_SHAPES = [
     (2, 4, 4, 97, 128, 128, None),    # D 128
     (1, 8, 2, 70, 192, 128, None),    # Dv != D
     (1, 4, 2, 33, 16, 16, 5),         # the reduced configs' D 16
+    (1, 4, 4, 77, 96, 96, None),      # phi3's D 96 (two boxes), ragged S
+    (1, 4, 2, 1000, 64, 64, 256),     # the window's edge inside tiles
 ]
 
 

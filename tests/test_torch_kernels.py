@@ -21,9 +21,11 @@ from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.kernels.moe_gating.ref import moe_gating_ref  # noqa: E402
 from repro.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels import (decode_attention, decode_attention_plain,  # noqa: E402
-                                 flash_attention, flash_attention_plain,
-                                 moe_gating, moe_gating_plain, rglru_scan,
+                                 flash_attention, flash_attention_bwd_plain,
+                                 flash_attention_plain, moe_gating,
+                                 moe_gating_plain, rglru_scan,
                                  rglru_scan_plain)
+from repro_torch.kernels.flash_attention.ops import bwd_launch_shape  # noqa: E402
 from repro_torch.kernels.moe_gating.ops import gating_launch_shape  # noqa: E402
 from repro_torch.kernels.rglru_scan.ops import scan_launch_shape  # noqa: E402
 
@@ -379,6 +381,79 @@ def test_flash_tensor_core_design_holds_the_card_tolerance_at_mla_dims(S):
     assert bool(((emu - ref).abs() <= 2e-5 + 2e-5 * ref.abs()).all())
 
 
+def _flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse, *,
+                                     window=None, split=True):
+    """The bf16 backward kernels' arithmetic: bf16 products summed in f32,
+    P = exp2(S·scale·log2 e − lse·log2 e) and 0 where masked, dS = P ⊙
+    (dP − D)·scale, and P, dS split into bf16 hi and lo parts (or rounded
+    to bf16 once) before they multiply dO, Q and K.  Inputs hold bf16
+    values; returns f32 dq, dk, dv."""
+    B, Sq, H, D = q.shape
+    Sk, K, Dv = v.shape[1], v.shape[2], v.shape[3]
+    G = H // K
+    scale = 1.0 / np.sqrt(D)
+    log2e = np.log2(np.e)
+    qf = q.float().reshape(B, Sq, K, G, D)
+    kf, vf = k.float(), v.float()
+    do = dout.float().reshape(B, Sq, K, G, Dv)
+    delta = (do * out.float().reshape(B, Sq, K, G, Dv)).sum(-1)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf)
+    q_pos = torch.arange(Sq)[:, None]
+    k_pos = torch.arange(Sk)[None, :]
+    hidden = q_pos < k_pos
+    if window is not None:
+        hidden = hidden | (q_pos - k_pos >= window)
+    p = torch.exp2(s * (scale * log2e)
+                   - (lse * log2e).reshape(B, K, G, Sq, 1))
+    p = torch.where(hidden, torch.zeros(()), p)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+    dv = sum(torch.einsum("bkgqs,bqkgd->bskd", x, do) for x in parts(p))
+    dk = sum(torch.einsum("bkgqs,bqkgd->bskd", x, qf) for x in parts(ds))
+    dq = sum(torch.einsum("bkgqs,bskd->bqkgd", x, kf) for x in parts(ds))
+    return dq.reshape(B, Sq, H, D), dk, dv
+
+
+@pytest.mark.parametrize("B,H,K,S,D,Dv,win", [
+    (1, 4, 4, 150, 64, 64, None),          # minicpm's D 64
+    (1, 4, 2, 200, 96, 96, 70),            # phi3's D 96, a window, GQA
+    (1, 2, 1, 260, 256, 256, 64),          # recurrentgemma's D, window
+    (1, 2, 2, 130, 192, 128, None),        # MLA's q/k 192, v 128
+])
+def test_flash_bwd_tensor_core_design_holds_the_card_tolerance(B, H, K, S, D,
+                                                               Dv, win):
+    """Splitting P and dS into bf16 hi + lo keeps the bf16 gradients within
+    the card check (2e-5 + 2^-8·|ref|) of the plain version on f32 copies,
+    and the f32 results within 2e-5 + 2e-5·|ref|; rounding P and dS to
+    bf16 once does not."""
+    rng = np.random.default_rng(23)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).bfloat16().float()
+
+    q, k, v = bf16(B, S, H, D), bf16(B, S, K, D), bf16(B, S, K, Dv)
+    dout = bf16(B, S, H, Dv)
+    out, lse = flash_attention_plain(q, k, v, window=win, with_lse=True)
+    out = out.bfloat16().float()
+    ref = flash_attention_bwd_plain(q, k, v, out, dout, lse, window=win)
+    emu = _flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse,
+                                           window=win)
+    once = _flash_bwd_tensor_core_emulation(q, k, v, out, dout, lse,
+                                            window=win, split=False)
+    for e, r in zip(emu, ref):
+        assert bool(((e.bfloat16().float() - r).abs()
+                     <= 2e-5 + 2.0 ** -8 * r.abs()).all())
+        assert bool(((e - r).abs() <= 2e-5 + 2e-5 * r.abs()).all())
+    assert not all(bool(((e - r).abs() <= 2e-5 + 2e-5 * r.abs()).all())
+                   for e, r in zip(once, ref))
+
+
 def _decode_split_emulation(q, k, v, valid_len, splits):
     """The decode kernel's split-and-merge: each row's min(valid_len, S)
     rows (S rows, logits 0, for valid_len 0) cut into `splits` even
@@ -501,6 +576,61 @@ def test_scan_launch_shape_routes_what_tma_cannot_read(dr, itemsize,
     if route == "simt":
         assert (sh.cb, sh.rows, sh.stages) == (0, 0, 0)
         assert sh.blocks == 2 * -(-dr // 64)
+
+
+@pytest.mark.parametrize("D,Dv,boxes", [
+    (16, 16, (1, 1)), (64, 64, (1, 1)),    # the reduced configs; minicpm
+    (96, 96, (2, 2)), (128, 128, (2, 2)),  # phi3; llama4, qwen2-vl
+    (256, 256, (4, 4)),                    # recurrentgemma
+    (192, 128, (3, 2)),                    # deepseek-v2's MLA
+])
+def test_bwd_launch_shape_fits_every_ported_head_dim(D, Dv, boxes):
+    """Every (D, Dv) a ported config trains or serves with has a bf16
+    instantiation whose two passes fit a block's 227 KB with a ring of at
+    least two stages."""
+    sh = bwd_launch_shape(D, Dv, torch.bfloat16)
+    assert sh.route == "tc" and sh.boxes == boxes
+    box = 64 * 128
+    kv, dq = sh.dkdv, sh.dq
+    assert (kv.rows, kv.tile, kv.warpgroups) == (64, 64, 3)
+    assert 2 <= kv.stages <= 4
+    # slack and barriers, K, V and the Pᵀ hand-over; a stage: Q, dO, stats
+    kv_fixed, kv_stage = 2048 + sum(boxes) * box + 64 * 64 * 4, \
+        sum(boxes) * box + 64 * 8
+    assert kv.smem == kv_fixed + kv.stages * kv_stage
+    assert dq.tile == 64 and dq.rows == 64 * (dq.warpgroups - 1)
+    assert 2 <= dq.stages <= 4
+    # slack and barriers, Q and dO; a stage: K, V
+    dq_fixed, dq_stage = 2048 + sum(boxes) * dq.rows * 128, sum(boxes) * box
+    assert dq.smem == dq_fixed + dq.stages * dq_stage
+    for ps, fixed, stage in ((kv, kv_fixed, kv_stage),
+                             (dq, dq_fixed, dq_stage)):
+        assert ps.smem <= 227 * 1024
+        # the ring is as deep as fits, up to 4
+        assert ps.stages == 4 or fixed + (ps.stages + 1) * stage > 227 * 1024
+    # two dQ warpgroups wherever their 128-row tiles leave two stages
+    assert (dq.warpgroups == 3) == (boxes != (4, 4))
+
+
+@pytest.mark.parametrize("D,Dv", [(64, 128), (128, 64), (256, 128),
+                                  (256, 192), (64, 192)])
+def test_bwd_launch_shape_refuses_pairs_not_built(D, Dv):
+    with pytest.raises(ValueError, match="not built"):
+        bwd_launch_shape(D, Dv, torch.bfloat16)
+    with pytest.raises(ValueError, match="not built"):
+        bwd_launch_shape(64, 64, torch.float16)
+    assert bwd_launch_shape(D, Dv, torch.float32).route == "simt"
+
+
+@pytest.mark.parametrize("D,Dv,tiles", [(64, 64, (64, 64)),
+                                        (128, 96, (32, 64)),
+                                        (256, 256, (64, 32))])
+def test_bwd_launch_shape_of_the_f32_kernels(D, Dv, tiles):
+    sh = bwd_launch_shape(D, Dv, torch.float32)
+    bq, bk = tiles
+    assert (sh.dq.rows, sh.dq.tile) == tiles
+    assert (sh.dkdv.rows, sh.dkdv.tile) == (bk, bq)
+    assert sh.dkdv.smem == sh.dq.smem <= 227 * 1024
 
 
 @pytest.mark.parametrize("max_blocks", [8, 16])

@@ -487,6 +487,40 @@ def test_memmap_source_and_pipeline_graph(tmp_path):
         got[2].numpy(), SyntheticSource(100).batch(2, 2, 8)["tokens"])
 
 
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::tc::dkdv_tc_kernel<1, 1>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, CUtensorMap, (anonymous namespace)::Params)",
+     "port"),
+    ("void (anonymous namespace)::tc::dq_tc_kernel<4, 4>(CUtensorMap, "
+     "CUtensorMap, CUtensorMap, CUtensorMap, (anonymous namespace)::Params)",
+     "port"),
+    ("void (anonymous namespace)::dkdv_kernel<float, 64, 64, 4>("
+     "(anonymous namespace)::Params)", "port"),
+    ("(anonymous namespace)::tc::delta_tc_kernel((anonymous namespace)::"
+     "Params)", "port"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_"
+     "warpgroupsize1x1x1_execute_segment_k_off_kernel__5x_cublas", "matmul"),
+    ("void at::native::(anonymous namespace)::reduce_kernel<512, 1, "
+     "at::native::ReduceOp<float, at::native::func_wrapper_t<float, "
+     "at::native::sum_functor<float, float, float>::operator()"
+     "(at::TensorIterator&)::{lambda(float, float)#1}>, unsigned int, "
+     "float, 4, 4> >(at::native::ReduceOp<float, float, unsigned int, "
+     "float, 4, 4>)", "other"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::CUDAFunctor_add<float>, at::detail::Array<char*, 3> >("
+     "int, at::native::CUDAFunctor_add<float>, at::detail::Array<char*, 3>)",
+     "other"),
+])
+def test_profile_groups_kernel_names(name, group):
+    """The profile's groups: the port's kernels (anonymous namespaces, the
+    tensor-core backward's too), cuBLAS products, and PyTorch's own
+    kernels, whose names carry ``at::`` even where a port kernel's name is
+    part of theirs."""
+    from repro_torch.launch.profile_train import group_of
+
+    assert group_of(name) == group
+
+
 def test_train_launcher_on_cpu(capsys, tmp_path):
     from repro_torch.launch import train
 
