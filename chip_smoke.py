@@ -11,7 +11,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels: each kernel against its plain PyTorch version at the serving
    paths' shapes (phi3-mini, recurrentgemma-2b, llama4-maverick,
    deepseek-v2's MLA heads (q/k 192, v 128) and routing, qwen2-vl's
-   GQA and musicgen's D 64), with the scan's and the gating's launch
+   GQA and musicgen's D 64), the flash forward at a q offset (chunked
+   prefill: phi3's and deepseek-v2's heads, yardstick SDPA with
+   ``causal_lower_right``), with the scan's and the gating's launch
    shapes — every element within the tolerance of the
    plain version's f32 result (one bf16 rounding for a bf16 output; MoE
    gating's experts, slots and keep identical, gates within 1e-6), median
@@ -62,9 +64,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    one decode step from the same cache state, eager and replayed: their
    logits agree, and each step's time split (eager: host enqueue, enqueue
    plus device and the bytes bound; graphed: the replay's enqueue and
-   enqueue plus device).  Each path frees its weights before the next.
+   enqueue plus device).  phi3, deepseek-v2, qwen2-vl and xlstm-1.3b (at
+   full width on its canary stack of 4 blocks) also prefill a 512-token
+   prompt in two chunks, 200 + 312, and decode 8 greedy tokens, held
+   against the one-shot prefill at f32 compute (LOGIT_ATOL, the same
+   tokens) and printed at the served bf16; the second chunk's launches
+   (flash = the attention layers, through the q offset) are a path of
+   their own.  Each path frees its weights before the next.
 
-6. train, two paths, each through ``repro_torch.launch.train.train``
+6. train, five paths, each through ``repro_torch.launch.train.train``
    (the reference launcher's graph: host(data) → pull(batch) →
    kernel(step) → host(metrics)) and the Executor over ``cuda:0``, random
    weights from seed 0, ``SyntheticSource`` batches, f32 master weights,
@@ -75,22 +83,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
      40 recomputed ones), flash_bwd = 40;
    - recurrentgemma-2b, full width and depth (26 layers, untied 256000
      vocab), cosine, B 1 × S 3072 (the 2048 window masks), 4 steps; per
-     step rglru_scan = 36, rglru_scan_bwd = 18, flash = 16, flash_bwd = 8.
-   Losses and gradient norms are finite; printed: the median step time
-   past the first (warm-up) step, tokens/s, MFU against 989 TFLOP/s
-   (model FLOPs 6·N·T over the matmul parameters plus the attention
-   products, recomputation not counted) and peak memory.
+     step rglru_scan = 36, rglru_scan_bwd = 18, flash = 16, flash_bwd = 8;
+   - deepseek-v2-236b at full width cut to its first (dense) layer, B 1
+     × S 2048, 4 steps; per step flash = 2, flash_bwd = 1 (MLA at q/k
+     192, v 128: the bf16 (3, 2) box pair);
+   - xlstm-1.3b at full width cut to its first super-block (8 of 48
+     blocks: at full depth its f32 gradients overflow at this init), B 1
+     × S 512, 3 steps; no kernel;
+   - qwen2-vl-7b at full width cut to 4 of 28 layers, B 1 × S 1024, 4
+     steps; per step flash = 8, flash_bwd = 4.
+   Losses and gradient norms are finite; printed: the cut, the median
+   step time past the first (warm-up) step, tokens/s, MFU against 989
+   TFLOP/s (model FLOPs 6·N·T over the matmul parameters plus the
+   attention and mLSTM products, formula printed, recomputation not
+   counted) and peak memory.
 
 Phase 3 also holds the forward's log-sum-exp output and the two
-backward kernels (``flash_attention_bwd`` at the two train shapes in
+backward kernels (``flash_attention_bwd`` at the three train shapes in
 bf16, on the tensor cores, and a small f32 one, with SDPA's backward as
 the yardstick and its backend named, each pass's device time and the
 launch shape, and the tensor-core kernels' registers and spills from
 the build; ``rglru_scan_bwd`` at recurrentgemma's train shape in f32
 and bf16) against their plain versions.  Phase 4 also trains reduced
-minicpm-2b, recurrentgemma and llama4 (f32 compute) for 3 steps on the
-card and on the CPU from one state (per-step losses within 1e-4, params
-within 1e-4 + 1e-5·|p|, the bounds of ``tests/test_torch_training.py``),
+minicpm-2b, recurrentgemma, llama4, deepseek-v2, xLSTM (canary stack)
+and qwen2-vl (patch embeddings in the batch) (f32 compute) for 3 steps
+on the card and on the CPU from one state (per-step losses within 1e-4,
+params within 1e-4 + 1e-5·|p|, the bounds of
+``tests/test_torch_training.py``; xLSTM's steps each from the CPU's
+state),
 drives reduced phi3-mini's loss down by 0.5 in 12 steps on one repeated
 batch, and round-trips a reduced train state through ``async_save`` and
 ``restore`` bit for bit.
@@ -126,6 +146,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: the value, so rtol is 2e-5 for an f32 output and 2^-8 for a bf16 one
 ATOL = 2e-5
 RTOL = {"float32": 2e-5, "bfloat16": 2.0 ** -8}
+#: two runs of one model at f32 compute that should give the same logits
+#: (the card against the CPU; a prompt prefilled in chunks against the
+#: whole prompt) differ by at most this much
+LOGIT_ATOL = 1e-3
 PHI3 = "phi3-mini-3.8b"
 MINICPM = "minicpm-2b"
 RG = "recurrentgemma-2b"
@@ -193,6 +217,7 @@ def kernel_phase(torch, dev, logs: dict) -> dict:
           "plain_ms, library_ms, bound_ms, bound_by):")
     chosen = {}
     chosen.update(_flash_cases(torch, dev, randn, flush))
+    _flash_offset_cases(torch, dev, randn, flush)
     chosen.update(_decode_cases(torch, dev, randn, flush))
     chosen.update(_rglru_cases(torch, dev, randn, flush))
     chosen.update(_gating_cases(torch, dev, randn, flush))
@@ -271,6 +296,55 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
         if (S, K, D, dt) == (512, 32, 96, "bfloat16"):
             chosen["flash_attention"] = row
     return chosen
+
+
+def _flash_offset_cases(torch, dev, randn, flush) -> None:
+    """The forward at a q offset (chunked prefill: query row i at key
+    position q_offset + i, against the first q_offset + Sq rows of a
+    1024-row cache, read in place through its strides): phi3's second
+    chunk of a 200 + 312 prompt and a 512-token prompt after 512 cached
+    tokens, deepseek-v2's MLA heads at the latter, and phi3's f32.
+    Yardstick: SDPA with ``causal_lower_right(Sq, Sk)``, the same mask at
+    q_offset = Sk - Sq (where Dv != D, the first backend that takes it)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+
+    for B, H, K, Sq, off, D, Dv, dt in [
+            (1, 32, 32, 312, 200, 96, 96, "bfloat16"),
+            (1, 32, 32, 512, 512, 96, 96, "bfloat16"),
+            (1, 128, 128, 512, 512, 192, 128, "bfloat16"),
+            (1, 32, 32, 312, 200, 96, 96, "float32")]:
+        dtype = getattr(torch, dt)
+        Sk = off + Sq
+        q = randn((B, Sq, H, D), dtype)
+        k = randn((B, 1024, K, D), dtype)[:, :Sk]       # cache views
+        v = randn((B, 1024, K, Dv), dtype)[:, :Sk]
+        scale = D ** -0.5
+        out = flash_attention(q, k, v, scale=scale, q_offset=off)
+        ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                    scale=scale, q_offset=off)
+        err = _check(torch, "flash_attention at a q offset", out, ref, dt)
+        del ref
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bias = causal_lower_right(Sq, Sk)
+        lib, backend = _sdpa_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bias, scale=scale),
+            flush, pinned=Dv != D)
+        seen = sum(min(off + i + 1, Sk) for i in range(Sq))
+        flops = 2 * B * H * (D + Dv) * seen
+        nbytes = B * (Sq * H * (D + Dv) + Sk * K * (D + Dv)) * dtype.itemsize
+        bound, bound_by = _bounds(nbytes, flops, dt)
+        ms = _median_ms(torch, lambda: flash_attention(
+            q, k, v, scale=scale, q_offset=off), flush)
+        plain = _median_ms(torch, lambda: flash_attention_plain(
+            q, k, v, scale=scale, q_offset=off), flush)
+        print(f"  flash_attention q_offset={off} B={B} H={H} K={K} Sq={Sq} "
+              f"Sk={Sk} D={D} Dv={Dv} {dt}: {err} {ATOL} {RTOL[dt]} {ms} "
+              f"{plain} {lib} (SDPA causal_lower_right, {backend}) {bound} "
+              f"{bound_by}")
 
 
 #: SDPA's backends, in the order tried where one must take Dv != D
@@ -456,17 +530,19 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
 
 
 def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
-    """The forward's log-sum-exp output and the flash backward at the two
+    """The forward's log-sum-exp output and the flash backward at the
     train paths' shapes (minicpm-2b: B 4, S 1024, H = K = 36, D 64;
-    recurrentgemma-2b: B 1, S 3072, H 10, K 1, D 256, window 2048; bf16)
+    recurrentgemma-2b: B 1, S 3072, H 10, K 1, D 256, window 2048;
+    deepseek-v2's MLA: B 1, S 2048, H = K = 128, D 192, Dv 128; bf16)
     and a small f32 case, against the plain versions on f32 copies of
     the same inputs.  Yardstick: SDPA's backward on the same q, k, v and
     dout (kv heads repeated to H), the backend named.  The bound counts
-    the five products a flash backward needs (S again, dP, dV, dK, dQ:
-    2.5x the forward's), not the kernels' recomputations and bf16 hi/lo
-    splits.  A line of its own per case gives the launch shape and each
-    pass's device time (profiler); one more, the tensor-core kernels'
-    registers and spills from the build's ``-Xptxas -v`` (``log``)."""
+    the five products a flash backward needs (S again and dK, dQ over D;
+    dP and dV over Dv: 2.5x the forward's at Dv = D), not the kernels'
+    recomputations and bf16 hi/lo splits.  A line of its own per case
+    gives the launch shape and each pass's device time (profiler); one
+    more, the tensor-core kernels' registers and spills from the build's
+    ``-Xptxas -v`` (``log``)."""
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_plain,
                                      flash_attention_plain)
@@ -476,14 +552,16 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
     print(f"  flash_attention_bwd tensor-core kernels (ptxas): "
           f"{_ptxas_report(log, ('dkdv_tc_kernel', 'dq_tc_kernel'))}")
     chosen = {}
-    for name, B, H, K, S, D, win, dt in [
-            ("minicpm-2b", 4, 36, 36, 1024, 64, None, "bfloat16"),
-            ("recurrentgemma-2b", 1, 10, 1, 3072, 256, 2048, "bfloat16"),
-            ("small", 1, 8, 2, 512, 64, None, "float32")]:
+    for name, B, H, K, S, D, Dv, win, dt in [
+            ("minicpm-2b", 4, 36, 36, 1024, 64, 64, None, "bfloat16"),
+            ("recurrentgemma-2b", 1, 10, 1, 3072, 256, 256, 2048,
+             "bfloat16"),
+            ("deepseek-v2", 1, 128, 128, 2048, 192, 128, None, "bfloat16"),
+            ("small", 1, 8, 2, 512, 64, 64, None, "float32")]:
         dtype = getattr(torch, dt)
         q, k = (randn((B, S, n, D), dtype) for n in (H, K))
-        v = randn((B, S, K, D), dtype)
-        dout = randn((B, S, H, D), dtype)
+        v = randn((B, S, K, Dv), dtype)
+        dout = randn((B, S, H, Dv), dtype)
         scale = D ** -0.5
         out, lse = flash_attention(q, k, v, window=win, scale=scale,
                                    with_lse=True)
@@ -503,8 +581,8 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
         del got, want
         lib, backend = _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush)
         seen = sum(min(i + 1, win or S) for i in range(S))
-        flops = 2 * B * H * 5 * D * seen
-        nbytes = dtype.itemsize * B * S * (4 * H * D + 4 * K * D) \
+        flops = 2 * B * H * (3 * D + 2 * Dv) * seen
+        nbytes = dtype.itemsize * B * S * 2 * (H + K) * (D + Dv) \
             + 4 * B * H * S
         bound, bound_by = _bounds(nbytes, flops, dt)
         row = {"name": "flash_attention_bwd", "route": "cuda",
@@ -518,13 +596,13 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
                    reps=5),
                "bound_ms": bound, "bound_by": bound_by, "library_ms": lib}
         print(f"  flash_attention_bwd {name} B={B} H={H} K={K} S={S} D={D} "
-              f"window={win} {dt}: lse err {lse_err}; {err} {ATOL} "
+              f"Dv={Dv} window={win} {dt}: lse err {lse_err}; {err} {ATOL} "
               f"{RTOL[dt]} {row['ms']} {row['plain_ms']} {lib} (SDPA "
               f"backward, {backend}) {bound} {bound_by}")
         passes = pass_ms(lambda: flash_attention_bwd(
             q, k, v, out, dout, lse, window=win, scale=scale))
         print(f"  flash_attention_bwd {name} passes (device ms a call): "
-              f"{passes}; {bwd_launch_shape(D, D, dtype)}")
+              f"{passes}; {bwd_launch_shape(D, Dv, dtype)}")
         if name == "minicpm-2b":
             chosen["flash_attention_bwd"] = row
     return chosen
@@ -676,7 +754,7 @@ def reference_phase(torch, dev) -> None:
         err = float((cl - gl).abs().max())
         print(f"reduced {arch} f32 greedy tokens: cpu {ct} cuda {gt}; "
               f"max logit diff {err}")
-        if ct != gt or err > 1e-3:
+        if ct != gt or err > LOGIT_ATOL:
             raise AssertionError(f"{arch}: the card's tokens differ from the "
                                  f"CPU's")
         # the same steps replayed from a CUDA graph over the slot's cache
@@ -703,19 +781,36 @@ def reference_phase(torch, dev) -> None:
 #: the params after 3 steps at lr 1e-3, the bounds of
 #: tests/test_torch_training.py (MODEL_TOL's rtol, STEP_TOL)
 TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL, TRAIN_PARAM_RTOL = 1e-4, 1e-4, 1e-5
+#: a gradient leaf, card against CPU at one state: within this fraction of
+#: the leaf's largest element plus TRAIN_LOSS_RTOL·|g| (the bound of
+#: tests/test_torch_training.py's GRAD_ATOL and MODEL_TOL)
+TRAIN_GRAD_ATOL = 1e-4
 
 
 def train_reference_phase(torch, dev) -> None:
-    """Reduced minicpm-2b, recurrentgemma and llama4 (f32 compute, remat
-    full) trained 3 steps from one state on the CPU (plain kernels) and
-    on the card (forward and backward kernels, the gating kernel with the
-    recomputed gates): the same losses and params.  Reduced phi3-mini
+    """Reduced minicpm-2b, recurrentgemma, llama4, deepseek-v2 (MLA),
+    xLSTM (its canary stack) and qwen2-vl (stub patch embeddings in every
+    batch) (f32 compute, remat full) trained 3 steps from one state on the
+    CPU (plain kernels) and on the card (forward and backward kernels, the
+    gating kernel with the recomputed gates): the same losses and params.
+    xLSTM's card steps start each from the CPU's state: its exponential
+    gates turn a weight difference Adam's first step makes into more than
+    the bound within three steps.  So each of its steps holds the loss,
+    every gradient leaf at that state (TRAIN_GRAD_ATOL) and, past the
+    first step, the params: Adam's first step is ±lr·g/(|g| + eps), and a
+    gradient element whose sum cancels to about eps takes another size
+    or sign from f32 sums in another order (on an H100 80GB HBM3 at 700
+    W: 1.5e-4 after it, 2.6e-6 and 3.4e-7 after the next two; PERF.md
+    §6).  Reduced
+    phi3-mini
     (bf16 compute) memorises one batch: loss down by 0.5 in 12 steps.  A
     reduced train state on the card survives async_save and restore bit
     for bit."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import LayerGroup
     from repro_torch.core import Executor
     from repro_torch.data import SyntheticSource
+    from repro_torch.models.frontends import make_patch_embeds
     from repro_torch.training import (AdamWConfig, checkpoint,
                                       init_train_state, make_train_step,
                                       wsd_schedule)
@@ -723,34 +818,85 @@ def train_reference_phase(torch, dev) -> None:
 
     cpu = torch.device("cpu")
     opt = AdamWConfig(schedule=wsd_schedule(1e-3, 1, 10, 5))
-    for arch in (MINICPM, RG, LLAMA4):
-        cfg = dataclasses.replace(reduced(get_config(arch)),
-                                  compute_dtype="float32")
-        state0 = init_train_state(cfg, torch.Generator().manual_seed(0), cpu)
-        runs = []
-        for d in (cpu, dev):
-            state = _to(torch, _clone(torch, state0), d)
-            step = make_train_step(cfg, opt, remat_policy="full")
-            losses = []
-            for i in range(3):
-                b = SyntheticSource(cfg.vocab_size, seed=i).batch(0, 4, 16)
-                state, m = step(state, {k: torch.from_numpy(x).to(d)
-                                        for k, x in b.items()})
-                losses.append(float(m["total_loss"]))
+    canary = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
+
+    def batch_of(cfg, i):
+        b = SyntheticSource(cfg.vocab_size, seed=i).batch(0, 4, 16)
+        b = {k: torch.from_numpy(x) for k, x in b.items()}
+        if cfg.frontend == "vision_stub":
+            b["extra_embeds"] = make_patch_embeds(
+                torch.Generator().manual_seed(i), 4, cfg.n_visual_tokens,
+                cfg.d_model, dtype=torch.float32)
+        return b
+
+    def grad_excess(cfg, params, batch) -> float:
+        """The gradients of the loss at ``params`` (a CPU and a card copy
+        of one state) against each other: the largest excess over the
+        bound, per leaf, across leaves."""
+        from repro_torch.models import loss_fn
+
+        grads = []
+        for ps, d in zip(params, (cpu, dev)):
             with torch.no_grad():
-                runs.append((losses, _to(torch, state["params"], cpu)))
-        (cl, cp), (gl, gp) = runs
+                tree = _clone(torch, ps)
+            for t in leaves(tree):
+                t.requires_grad_(True)
+            loss, _ = loss_fn(cfg, tree, _to(torch, batch, d),
+                              remat_policy="full")
+            loss.backward()
+            grads.append([t.grad.cpu() for t in leaves(tree)])
+        return max(float(((g - c).abs() - TRAIN_GRAD_ATOL * c.abs().max()
+                          - TRAIN_LOSS_RTOL * c.abs()).max())
+                   for g, c in zip(*grads))
+
+    def excess_and_diff(gp, cp):
+        pairs = list(zip(leaves(gp), leaves(cp)))
+        return (max(float(((x - y).abs() - TRAIN_PARAM_ATOL
+                           - TRAIN_PARAM_RTOL * y.abs()).max())
+                    for x, y in pairs),
+                max(float((x - y).abs().max()) for x, y in pairs))
+
+    for arch in (MINICPM, RG, LLAMA4, DSV2, XLSTM, QWEN2VL):
+        kw = {"groups": canary} if arch == XLSTM else {}
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  compute_dtype="float32", **kw)
+        state0 = init_train_state(cfg, torch.Generator().manual_seed(0), cpu)
+        devs = (cpu, dev)
+        states = [_to(torch, _clone(torch, state0), d) for d in devs]
+        steps = [make_train_step(cfg, opt, remat_policy="full") for _ in devs]
+        (cl, gl), excess, diff, gexcess = ([], []), [], [], []
+        for i in range(3):
+            batch = batch_of(cfg, i)
+            if arch == XLSTM:
+                if i:                            # from the CPU's state
+                    with torch.no_grad():
+                        states[1] = _to(torch, _clone(torch, states[0]),
+                                        dev)
+                gexcess.append(grad_excess(cfg, [s["params"] for s in states],
+                                           batch))
+            for j, d in enumerate(devs):
+                states[j], m = steps[j](states[j], _to(torch, batch, d))
+                (cl, gl)[j].append(float(m["total_loss"]))
+            if arch == XLSTM or i == 2:
+                with torch.no_grad():
+                    e, df = excess_and_diff(
+                        _to(torch, states[1]["params"], cpu),
+                        states[0]["params"])
+                excess.append(e)
+                diff.append(df)
+        if arch == XLSTM:               # Adam's first step: printed only
+            excess = excess[1:]
         loss_ok = all(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
                       for a, b in zip(gl, cl))
-        excess = max(float(((x - y).abs() - TRAIN_PARAM_ATOL
-                            - TRAIN_PARAM_RTOL * y.abs()).max())
-                     for x, y in zip(leaves(gp), leaves(cp)))
-        diff = max(float((x - y).abs().max())
-                   for x, y in zip(leaves(gp), leaves(cp)))
-        print(f"reduced {arch} f32 train, 3 steps: cpu losses {cl} cuda "
-              f"{gl}; max param diff {diff} (tol {TRAIN_PARAM_ATOL} + "
+        held = ""
+        if arch == XLSTM:
+            held = (f" (each from the CPU state; gradient excess over "
+                    f"{TRAIN_GRAD_ATOL}·max|g| + {TRAIN_LOSS_RTOL}·|g| per "
+                    f"step {gexcess}; params held after steps 2-3)")
+        print(f"reduced {arch} f32 train, 3 steps{held}: cpu losses {cl} "
+              f"cuda {gl}; max param diff {diff} (tol {TRAIN_PARAM_ATOL} + "
               f"{TRAIN_PARAM_RTOL}·|p|)")
-        if not loss_ok or excess > 0:
+        if not loss_ok or max(excess) > 0 or max(gexcess, default=0) > 0:
             raise AssertionError(f"{arch}: training on the card differs "
                                  f"from the CPU")
 
@@ -813,7 +959,7 @@ def _patch_prefill(torch, cfg, params, prompt, dev) -> None:
     print(f"  qwen2-vl prefill of {P} patch embeddings + {S} tokens at "
           f"(t, h, w) positions: cpu token {tok[0]} cuda {tok[1]}; max "
           f"logit diff {err}")
-    if tok[0] != tok[1] or err > 1e-3:
+    if tok[0] != tok[1] or err > LOGIT_ATOL:
         raise AssertionError("qwen2-vl: the card's patch prefill differs "
                              "from the CPU's")
 
@@ -841,8 +987,8 @@ COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
 MFU_PEAK = PEAK_FLOPS["bfloat16"]
 
 
-def serve_phase(torch, dev, cfg, lengths, max_seq, *,
-                long_prompt=None) -> tuple[dict, int, int]:
+def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
+                chunked: bool = False) -> tuple[dict, int, int, dict]:
     """Serve ``cfg`` (full width, random weights from seed 0) through
     ``serve()`` and the Executor over ``dev``: prompts of ``lengths``
     tokens (the sixth gets the first one's prompt; for the audio stub,
@@ -851,9 +997,10 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     tokens, every decode step is a graph replay, and a direct prefill (of
     request ``long_prompt``, default the second) and decode step give
     finite logits of the vocabulary's width, the prefill's token the
-    engine's.  Returns the kernels' launch counts of the serving run, its
-    prefills and its decode steps (the replays and the engine's warm-up
-    step)."""
+    engine's.  ``chunked``: then :func:`chunked_prefill_phase` on the same
+    weights.  Returns the kernels' launch counts of the serving run, its
+    prefills, its decode steps (the replays and the engine's warm-up
+    step) and the chunked prefill's second chunk's counts (or None)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -948,7 +1095,98 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *,
     _check(torch, "graphed decode step", replayed, logits2, "float32")
     _decode_step_split(torch, cfg, p, int(logits2[0].argmax()), eager,
                        graphs, prompt.shape[1] + 1, dev)
-    return counts, len(done), steps + DecodeGraphs.warmup_steps
+    chunk = None
+    if chunked:
+        del graphs, caches, eager
+        gc.collect()
+        chunk = chunked_prefill_phase(torch, dev, cfg, params, p, max_seq)
+    return counts, len(done), steps + DecodeGraphs.warmup_steps, chunk
+
+
+def chunked_prefill_phase(torch, dev, cfg, params, served,
+                          max_seq: int) -> dict:
+    """Chunked prefill (a prompt at a cache offset): one 512-token prompt
+    prefilled in two chunks, 200 + 312 (the split falls inside a 128-row
+    q tile and a 64-row kv tile), the second at cache offset 200 through
+    the flash kernel's q offset, then 8 greedy decode steps, against the
+    one-shot prefill of the same prompt and its 8 steps.
+
+    Held at f32 compute (``params``, the f32 masters, and f32 caches):
+    the last-token logits of the prefill and of every step within
+    LOGIT_ATOL, the tolerance the smoke holds the card's logits to against
+    the CPU's, the greedy tokens identical.  Where a recurrent state
+    carries the chunks' f32 difference into the steps (xLSTM), the
+    steps' logits are printed and the prefill's held: the canary stack's
+    gates grow the difference from 6e-5 at the prefill to 3.7e-3 over 8
+    steps (on an H100 80GB HBM3 at 700 W, PERF.md §6).  At the served
+    bf16 compute (``served``, the engine's cast, bf16 caches: the
+    kernel's tensor-core route) it is printed, not held: cuBLAS takes
+    other tilings for a 312-row product than for a 512-row one and bf16
+    rounds the difference (on the same card: 0.05-0.09 on prefill logits
+    up to 5, and deepseek-v2's greedy tokens parting after 3 steps;
+    PERF.md §6).  A MoE layer runs
+    dropless here (capacity E / k): a dropping router drops other tokens
+    from a chunk than from the whole prompt, in the reference too.
+    Returns the kernels' launches of the served dtype's second chunk."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import (cast_params, decode_step, init_cache,
+                                    prefill)
+
+    if cfg.moe.n_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 512)), device=dev)
+
+    def run(c, weights, dtype, chunks, counted):
+        caches = init_cache(c, 1, max_seq, dtype=dtype, device=dev)
+        counts = None
+        for i, chunk in enumerate(chunks):
+            if counted and i == 1:
+                for name in COUNTED:
+                    getattr(kernels, name).launches = 0
+            logits, caches = prefill(c, weights, chunk, caches)
+            if counted and i == 1:
+                counts = {k: getattr(kernels, k).launches for k in COUNTED}
+        toks, out = [int(logits[0].argmax())], [logits.float()]
+        for _ in range(8):
+            logits, caches = decode_step(
+                c, weights, torch.tensor([toks[-1]], device=dev), caches)
+            toks.append(int(logits[0].argmax()))
+            out.append(logits.float())
+        return toks, torch.cat(out), counts
+
+    whole, split = [prompt], [prompt[:, :200], prompt[:, 200:]]
+    served_f32 = cfg.compute_dtype == "float32"
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = cast_params(c32, params)
+    at, al, _ = run(c32, p32, torch.float32, whole, False)
+    bt, bl, counts = run(c32, p32, torch.float32, split, served_f32)
+    err = float((bl - al).abs().max())
+    first = float((bl[0] - al[0]).abs().max())
+    recurrent = any(m in ("mlstm", "slstm", "rglru")
+                    for g in cfg.groups for m in g.pattern)
+    print(f"chunked prefill {cfg.arch_id} ({cfg.n_layers} layers), f32: "
+          f"one-shot tokens {at}, 200 + 312 {bt}; max logit diff {err}, of "
+          f"the prefill {first} (tol {LOGIT_ATOL}"
+          f"{', the prefill held' if recurrent else ''})")
+    if at != bt or max(first, 0.0 if recurrent else err) > LOGIT_ATOL:
+        raise AssertionError(f"{cfg.arch_id}: the chunked prefill differs "
+                             f"from the one-shot prefill")
+    if not served_f32:
+        at, al, _ = run(cfg, served, torch.bfloat16, whole, False)
+        bt, bl, counts = run(cfg, served, torch.bfloat16, split, True)
+        if not bool(torch.isfinite(bl).all()):
+            raise AssertionError(f"{cfg.arch_id}: chunked prefill logits "
+                                 f"are not finite")
+        print(f"  {cfg.compute_dtype} (printed, not held): one-shot tokens "
+              f"{at}, 200 + 312 {bt}; max logit diff "
+              f"{float((bl - al).abs().max())} (prefill "
+              f"{float((bl[0] - al[0]).abs().max())}), |logits| max "
+              f"{float(al.abs().max())}")
+    return counts
 
 
 def _clone(torch, tree):
@@ -1025,13 +1263,46 @@ def _decode_step_split(torch, cfg, params, tok, caches, graphs, pos,
           f"{graphed_split[1]} ms")
 
 
-def train_phase(torch, dev, cfg, *, batch: int, seq: int,
-                steps: int) -> dict:
+def _mixer_flops(cfg, batch: int, seq: int) -> tuple[int, str]:
+    """Model FLOPs a train step spends in products that are not x @ W
+    (forward once, backward twice: 3x), and the formula: per attention
+    layer 2·B·H·(Dqk + Dv)·seen (QKᵀ and PV; seen = the keys the causal
+    mask and the window leave, summed over the rows; MLA's Dqk is nope +
+    rope, its Dv v_head_dim), per mLSTM layer 2·B·H·(2·dh·seen_L +
+    2·S·dh²) (its chunk's qkᵀ and (S∘W)v over the L-token chunks, and
+    the carried state's C0 q and Σ v kᵀ, dh² a token)."""
+    total = 0
+    for g in cfg.groups:
+        for mixer in g.pattern:
+            if mixer in ("attn", "attn_local", "mla"):
+                win = cfg.rec.local_window if mixer == "attn_local" else None
+                seen = sum(min(i + 1, win or seq) for i in range(seq))
+                if mixer == "mla":
+                    m = cfg.mla
+                    dqk, dv = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+                else:
+                    dqk = dv = cfg.head_dim_
+                total += g.count * 3 * 2 * batch * cfg.n_heads \
+                    * (dqk + dv) * seen
+            elif mixer == "mlstm":
+                di = int(cfg.d_model * cfg.rec.mlstm_proj_factor)
+                dh, L = di // cfg.n_heads, min(1024, seq)
+                seen = (seq // L) * sum(i + 1 for i in range(L))
+                total += g.count * 3 * 2 * batch * cfg.n_heads \
+                    * (2 * dh * seen + 2 * seq * dh * dh)
+    formula = ("3 x (attention: 2·B·H·(Dqk + Dv)·seen a layer; mLSTM: "
+               "2·B·H·(2·dh·seen + 2·S·dh²) a layer)")
+    return total, formula
+
+
+def train_phase(torch, dev, cfg, *, batch: int, seq: int, steps: int,
+                cut: str = "nothing cut") -> dict:
     """Train ``cfg`` (full width, random weights from seed 0) for
     ``steps`` steps through ``repro_torch.launch.train.train`` and the
     Executor over ``dev``, remat full; losses and gradient norms finite.
-    Prints the median step time past the first step, tokens/s, MFU and
-    peak memory; returns the kernels' launch counts of the run."""
+    Prints ``cut`` (how the config was cut to fit), the median step time
+    past the first step, tokens/s, MFU and peak memory; returns the
+    kernels' launch counts of the run."""
     import math
 
     from repro_torch import kernels
@@ -1059,23 +1330,16 @@ def train_phase(torch, dev, cfg, *, batch: int, seq: int,
     gc.collect()
     torch.cuda.empty_cache()
     tokens = batch * seq
-    attn = 0
-    for g in cfg.groups:
-        for mixer in g.pattern:
-            if mixer in ("attn", "attn_local"):
-                win = cfg.rec.local_window if mixer == "attn_local" else None
-                seen = sum(min(i + 1, win or seq) for i in range(seq))
-                # QK^T and PV forward, twice that backward
-                attn += g.count * 3 * 2 * batch * cfg.n_heads \
-                    * 2 * cfg.head_dim_ * seen
-    flops = 6 * n_matmul * tokens + attn
-    print(f"train {cfg.arch_id} full width ({cfg.n_layers} layers, "
-          f"{n_params} params, f32 master, {cfg.compute_dtype} compute, "
-          f"remat full), B {batch} x S {seq}, {steps} steps: losses "
+    mixer, formula = _mixer_flops(cfg, batch, seq)
+    flops = 6 * n_matmul * tokens + mixer
+    print(f"train {cfg.arch_id} full width ({cfg.n_layers} layers: "
+          f"{cut}; {n_params} params, f32 master, {cfg.compute_dtype} "
+          f"compute, remat full), B {batch} x S {seq}, {steps} steps: losses "
           f"{losses}; grad norms {gnorms}; median step (past the first) "
           f"{step_s} s = {tokens / step_s} tokens/s; model FLOPs per step "
-          f"{flops} (6·N·T with N = {n_matmul} matmul params, plus "
-          f"attention {attn}; recomputation not counted) = MFU "
+          f"{flops} (6·N·T with N = {n_matmul} matmul params, plus the "
+          f"mixers' products {mixer} = {formula}; recomputation not "
+          f"counted) = MFU "
           f"{flops / step_s / MFU_PEAK} of {MFU_PEAK / 1e12:.0f} TFLOP/s; "
           f"max_memory_allocated {peak} B")
     if not all(map(math.isfinite, losses + gnorms)):
@@ -1109,6 +1373,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import LayerGroup
     from repro_torch.kernels import _build
+    from repro_torch.models import init_params
 
     t_start = time.perf_counter()
     logs = _build.build()
@@ -1123,12 +1388,19 @@ def main() -> int:
     train_reference_phase(torch, dev)
     launches = {}
 
-    def path(name, cfg, lengths, max_seq, want, **kw):
-        counts, prefills, steps = serve_phase(torch, dev, cfg, lengths,
-                                              max_seq, **kw)
+    def path(name, cfg, lengths, max_seq, want, chunk_want=None, **kw):
+        counts, prefills, steps, chunk = serve_phase(
+            torch, dev, cfg, lengths, max_seq, chunked=chunk_want is not None,
+            **kw)
         _check_counts(counts, want(prefills, steps))
         for k, n in counts.items():
             launches.setdefault(k, {})[name] = n
+        if chunk is not None:
+            # the second chunk, at cache offset 200: every attention layer
+            # through the flash kernel's q offset
+            _check_counts(chunk, chunk_want)
+            for k, n in chunk.items():
+                launches[k][f"{name} chunked prefill"] = n
         gc.collect()
         torch.cuda.empty_cache()          # the next model's weights fit
 
@@ -1136,7 +1408,8 @@ def main() -> int:
     phi3 = get_config(PHI3)
     path(PHI3, phi3, [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 32 * p, "decode_attention": 32 * s,
-                       "rglru_scan": 0, "moe_gating": 0})
+                       "rglru_scan": 0, "moe_gating": 0},
+         chunk_want={"flash_attention": 32})
     # recurrentgemma-2b: 18 RG-LRU and 8 local-attention layers; the
     # 3000-token prompt is masked by the 2048 window and wraps the ring
     path(RG, get_config(RG), [64, 512, 300, 137, 450, 64, 3000], 4096,
@@ -1154,6 +1427,21 @@ def main() -> int:
     path(XLSTM, get_config(XLSTM), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 0, "decode_attention": 0,
                        "rglru_scan": 0, "moe_gating": 0})
+    # its chunked prefill at full width on the canary stack (one mLSTM
+    # and one sLSTM block, twice): with random weights the 48-block stack
+    # moves its logits by ~6 when the embedding is scaled by 1 + 1e-7
+    # (launch/probe_xlstm.py), so no two summation orders agree there
+    canary = dataclasses.replace(get_config(XLSTM), groups=(
+        LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),))
+    weights = init_params(canary, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+    chunk = chunked_prefill_phase(torch, dev, canary, weights, weights, 1024)
+    _check_counts(chunk, {})
+    for k, n in chunk.items():
+        launches[k][f"{XLSTM} canary chunked prefill"] = n
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
     # deepseek-v2 at full width, 2 layers of 60 (the dense first layer and
     # one MoE layer of 160 experts top-6 + 2 shared), f32 weights: MLA
     # attends at q/k 192, v 128
@@ -1163,21 +1451,23 @@ def main() -> int:
         dataclasses.replace(dsv2.groups[1], count=1)))
     path(DSV2, dsv2, [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 2 * p, "decode_attention": 2 * s,
-                       "rglru_scan": 0, "moe_gating": p + s})
+                       "rglru_scan": 0, "moe_gating": p + s},
+         chunk_want={"flash_attention": 2, "moe_gating": 1})
     # qwen2-vl-7b: 28 attention layers (M-RoPE, GQA 28/4), f32, text
     # prompts as the reference's engine serves
     path(QWEN2VL, get_config(QWEN2VL), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 28 * p, "decode_attention": 28 * s,
-                       "rglru_scan": 0, "moe_gating": 0})
+                       "rglru_scan": 0, "moe_gating": 0},
+         chunk_want={"flash_attention": 28})
     # musicgen-large: 48 attention layers (MHA, D 64), f32, prompts of
     # stub EnCodec ids
     path(MUSICGEN, get_config(MUSICGEN), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 48 * p, "decode_attention": 48 * s,
                        "rglru_scan": 0, "moe_gating": 0})
 
-    def trained(name, cfg, batch, seq, steps, per_step):
+    def trained(name, cfg, batch, seq, steps, per_step, cut="nothing cut"):
         counts = train_phase(torch, dev, cfg, batch=batch, seq=seq,
-                             steps=steps)
+                             steps=steps, cut=cut)
         _check_counts(counts, {k: n * steps for k, n in per_step.items()})
         for k, n in counts.items():
             launches.setdefault(k, {})[f"{name} train"] = n
@@ -1190,6 +1480,32 @@ def main() -> int:
     trained(RG, get_config(RG), 1, 3072, 4,
             {"rglru_scan": 36, "rglru_scan_bwd": 18, "flash_attention": 16,
              "flash_attention_bwd": 8})
+    # deepseek-v2 at full width cut to its first (dense) layer: MLA at q/k
+    # 192, v 128, through the bf16 (3, 2) flash forward and backward; one
+    # MoE layer's 3.8 G expert weights at 16 bytes a parameter do not fit
+    # beside it
+    dsv2 = get_config(DSV2)
+    trained(DSV2, dataclasses.replace(dsv2, groups=(
+        dataclasses.replace(dsv2.groups[0], count=1),)), 1, 2048, 4,
+        {"flash_attention": 2, "flash_attention_bwd": 1},
+        cut="cut to its first, dense layer of 60")
+    # xlstm-1.3b at full width cut to its first super-block (7 mLSTM
+    # and 1 sLSTM block of 48), f32, no kernel (the reference has none);
+    # sLSTM is a loop over time.  At full depth the reference's init
+    # overflows the f32 gradients (NaN) at S 512: the residual stream
+    # reaches ~6e4 in the first super-block (launch/probe_xlstm.py)
+    xlstm = get_config(XLSTM)
+    trained(XLSTM, dataclasses.replace(xlstm, groups=(
+        dataclasses.replace(xlstm.groups[0], count=1),)), 1, 512, 3, {},
+        cut="cut to its first super-block, 8 of 48 blocks: at full depth "
+            "the f32 gradients overflow (NaN) at this init")
+    # qwen2-vl-7b cut to 4 of its 28 layers (7.6 G parameters at 16 bytes
+    # do not fit), text tokens as the launcher feeds them
+    qwen = get_config(QWEN2VL)
+    trained(QWEN2VL, dataclasses.replace(qwen, groups=(
+        dataclasses.replace(qwen.groups[0], count=4),)), 1, 1024, 4,
+        {"flash_attention": 8, "flash_attention_bwd": 4},
+        cut="cut to 4 of 28 layers")
 
     for name, row in chosen.items():
         row["launches"] = sum(launches[name].values())

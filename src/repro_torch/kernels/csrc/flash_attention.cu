@@ -4,9 +4,14 @@
 // (src/repro/kernels/flash_attention/kernel.py, pl.pallas_call in
 // `flash_attention_fwd`, body `_flash_kernel`): grouped-query attention
 // (q head h reads kv head h / (H / K)), an online softmax over kv tiles
-// with an f32 running max, denominator and accumulator, a top-left
-// aligned causal mask (q_pos >= k_pos), an optional sliding window
-// (q_pos - k_pos < window) and a kv_len tail mask.  Masked logits get an
+// with an f32 running max, denominator and accumulator, a causal mask
+// (q_pos >= k_pos), an optional sliding window (q_pos - k_pos < window)
+// and a kv_len tail mask.  Query row i sits at q_pos = q_offset + i: 0
+// for a prompt attending to itself (top-left aligned, as the TPU kernel),
+// the cache length for a prompt that continues a cache (chunked prefill,
+// which the reference runs through its plain chunked attention with
+// q_offset; k and v are then the cache's first q_offset + Sq rows, read in
+// place through their strides, so Sk > Sq).  Masked logits get an
 // additive -1e30, as in the TPU kernel.  Output in the input type.  The
 // value head dim Dv may differ from the q/k head dim D, as the TPU
 // kernel's (MLA: D = 192, Dv = 128): S = Q·Kᵀ runs over D, and V, the
@@ -89,6 +94,7 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   int causal, window;  // window <= 0: none
+  int q_offset;        // the position of query row 0 among the keys
   float scale;
 };
 
@@ -141,11 +147,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
     row_l[tid] = 0.f;
   }
 
-  // kv tiles some row of this q tile can see
+  // kv tiles some row of this q tile can see (positions, not rows)
+  const int qo = p.q_offset;
   const int q_last = min(q0 + BQ, p.Sq) - 1;
   int k_end = p.Sk;
-  if (p.causal) k_end = min(k_end, q_last + 1);
-  int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  if (p.causal) k_end = min(k_end, qo + q_last + 1);
+  int k_begin = p.window > 0 ? max(0, qo + q0 - p.window + 1) : 0;
   k_begin -= k_begin % BK;
 
   const int nd = (Dv + 15) / 16;  // output columns per thread, <= NJ
@@ -189,7 +196,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        const int qpos = q0 + r, kpos = k0 + c;
+        const int qpos = qo + q0 + r, kpos = k0 + c;
         float bias = 0.f;
         if (kpos >= p.Sk) bias += NEG;
         if (p.causal && qpos < kpos) bias += NEG;
@@ -343,14 +350,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float scale_log2 = p.scale * LOG2E;
   __nv_bfloat16* const out_ = static_cast<__nv_bfloat16*>(p.out);
   constexpr float LN2 = 0.6931471805599453f;
-  // the longest q tiles (most kv tiles under the causal mask) go first
+  // the longest q tiles (most kv tiles under the causal mask) go first;
+  // at a q offset every tile sees q_offset more keys, so the order holds
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.K);
-  // kv tiles some row of this q tile can see
+  const int qo = p.q_offset;
+  // kv tiles some row of this q tile can see (positions, not rows)
   const int q_last = min(q0 + BQ, p.Sq) - 1;
-  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
-  int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int k_end = p.causal ? min(p.Sk, qo + q_last + 1) : p.Sk;
+  int k_begin = p.window > 0 ? max(0, qo + q0 - p.window + 1) : 0;
   k_begin -= k_begin % BK;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
@@ -393,11 +402,13 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int t4 = lane % 4;
-    // the accumulator rows this thread holds: r0 and r0 + 8
+    // the accumulator rows this thread holds: r0 and r0 + 8, at key
+    // positions qo + r0 and qo + r0 + 8
     const int r0 = q0 + wg * 64 + warp * 16 + lane / 4;
     const int qa = q0 + wg * 64;           // this warpgroup's first row
     const int qb = min(qa + 63, p.Sq - 1);  // and its last live one
     const bool live = qa < p.Sq;
+    const int pa = qo + qa, pb = qo + qb, p0 = qo + r0;  // their positions
     const uint32_t q_tile = sq + wg * 64 * ROW_BYTES;
 
     float o[NCV][32];
@@ -415,8 +426,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t ks = sk + s * L::K_BYTES, vs = sv + s * L::V_BYTES;
       // a tile that none of this warpgroup's rows can see: skip the
       // arithmetic, but wait for it so the empty arrival counts for it
-      const bool skip = !live || (p.causal && k0 > qb) ||
-                        (p.window > 0 && qa - (k0 + BK - 1) >= p.window);
+      const bool skip = !live || (p.causal && k0 > pb) ||
+                        (p.window > 0 && pa - (k0 + BK - 1) >= p.window);
       mbar_wait(k_full + 8 * s, ph);
       if (!skip) {
         // S = Q Kᵀ: 64 x 64, f32
@@ -439,8 +450,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         // is scaled to log2 units and masked here; any other keeps its raw
         // scores, and the scale folds into the one FFMA before each exp2
         // (a positive scale commutes with the max).
-        const bool masked = (p.causal && k0 + BK - 1 > qa) || k0 + BK > p.Sk ||
-                            (p.window > 0 && qb - k0 >= p.window);
+        const bool masked = (p.causal && k0 + BK - 1 > pa) || k0 + BK > p.Sk ||
+                            (p.window > 0 && pb - k0 >= p.window);
         const bool scaled = masked || !(scale_log2 > 0.f);
         if (scaled) {
 #pragma unroll
@@ -456,12 +467,12 @@ __global__ void __launch_bounds__(THREADS, 1)
                   x1 += NEG;
                 }
                 if (p.causal) {
-                  if (r0 < kp) x0 += NEG;
-                  if (r0 + 8 < kp) x1 += NEG;
+                  if (p0 < kp) x0 += NEG;
+                  if (p0 + 8 < kp) x1 += NEG;
                 }
                 if (p.window > 0) {
-                  if (r0 - kp >= p.window) x0 += NEG;
-                  if (r0 + 8 - kp >= p.window) x1 += NEG;
+                  if (p0 - kp >= p.window) x0 += NEG;
+                  if (p0 + 8 - kp >= p.window) x1 += NEG;
                 }
               }
               sc[4 * j + e] = x0;
@@ -641,16 +652,17 @@ int run(Params p, int B, cudaStream_t stream) {
 // cudaError_t, 1000 + a CUresult if a tensor map could not be built, or
 // -1 for arguments the kernel does not take (for bf16, a (D, Dv) box pair
 // it is not instantiated for).  lse: null, or the (B, H, Sq) f32 output.
+// q_offset: the key position of query row 0 (>= 0).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int dtype, int B,
     int H, int K, int Sq, int Sk, int D, int Dv, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, int q_offset, float scale, void* stream) {
   if (D <= 0 || D > MAX_D || D % 8 || Dv <= 0 || Dv > MAX_D || Dv % 8 ||
       K <= 0 || H % K || B <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 ||
-      H > 65535)
+      H > 65535 || q_offset < 0)
     return -1;
   Params p;
   p.q = q;
@@ -675,6 +687,7 @@ extern "C" int flash_attention_fwd(
   p.v_sh = v_sh;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return simt::run(p, B, s);

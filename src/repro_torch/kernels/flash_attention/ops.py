@@ -30,7 +30,7 @@ NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 5 + [_I] * 8 + [_L] * 9
-             + [_I, _I, ctypes.c_float, _P])
+             + [_I, _I, _I, ctypes.c_float, _P])
 _BWD_ARGTYPES = [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P]
 #: the (q/k, v) counts of 64-column boxes the bf16 kernel is built for
 #: (``csrc/flash_attention.cu``, ``tc::run``): D 8-64, 65-128 and 129-256
@@ -105,15 +105,15 @@ def _tma_ready(t: torch.Tensor) -> bool:
         for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
 
 
-def _plain_scores(q, k, causal, window, scale):
+def _plain_scores(q, k, causal, window, scale, q_offset=0):
     """The masked f32 scores (B, K, G, Sq, Sk) of the plain version: an
-    additive -1e30 for keys hidden by the top-left causal mask or the
-    window."""
+    additive -1e30 for keys hidden by the causal mask or the window, with
+    query row i at position ``q_offset + i``."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     qh = q.float().reshape(B, Sq, K, H // K, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qh, k.float()) * scale
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     bias = torch.zeros((Sq, Sk), device=q.device)
     if causal:
@@ -126,18 +126,21 @@ def _plain_scores(q, k, causal, window, scale):
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           scale: float | None = None,
-                          with_lse: bool = False):
+                          with_lse: bool = False, q_offset: int = 0):
     """Dense f32 attention with the kernel's masking: an additive -1e30
-    for keys hidden by the top-left causal mask or the window.
+    for keys hidden by the causal mask (query row i, at position
+    ``q_offset + i``, sees keys j <= q_offset + i) or the window (and
+    q_offset + i - j < window).
 
     q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv), H a multiple
-    of K.  Returns (B, Sq, H, Dv) in q.dtype, and with ``with_lse`` also
-    each row's f32 log-sum-exp over its scaled, masked scores, (B, H,
-    Sq)."""
+    of K; Sk may exceed Sq (a prompt at a cache offset attends to the
+    cache's earlier rows).  Returns (B, Sq, H, Dv) in q.dtype, and with
+    ``with_lse`` also each row's f32 log-sum-exp over its scaled, masked
+    scores, (B, H, Sq)."""
     B, Sq, H, D = q.shape
     Dv = v.shape[3]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    s = _plain_scores(q, k, causal, window, scale)
+    s = _plain_scores(q, k, causal, window, scale, q_offset)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     out = o.reshape(B, Sq, H, Dv).to(q.dtype)
@@ -174,9 +177,12 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    scale: float | None = None, with_lse: bool = False):
+                    scale: float | None = None, with_lse: bool = False,
+                    q_offset: int = 0):
     """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv) — model
-    layout.  The value head dim Dv may differ from D (MLA).
+    layout.  The value head dim Dv may differ from D (MLA).  ``q_offset``
+    is the position of q's first row among the keys (a prompt at a cache
+    offset: its length), so the causal mask is q_offset + i >= j.
 
     When an input requires a gradient (and grad mode is on), the call
     goes through :class:`FlashAttention`, whose backward is
@@ -185,13 +191,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     counts the launch in ``flash_attention.launches``; raises on what the
     kernel does not take.  On a CPU tensor: :func:`flash_attention_plain`.
     ``with_lse`` also returns the rows' f32 log-sum-exp (B, H, Sq)
-    (no autograd).
+    (no autograd).  A gradient is taken at ``q_offset`` 0 only, as the
+    reference differentiates only that path (its ``custom_vjp``); at an
+    offset under autograd the call raises.
     """
     scale = _check(q, k, v, window, scale)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got "
+                         f"{q_offset}")
     if not with_lse and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
+        if q_offset:
+            raise NotImplementedError(
+                "flash_attention: no backward at a q offset (a prompt at a "
+                "cache offset); the reference differentiates q_offset 0 "
+                "only")
         return FlashAttention.apply(q, k, v, causal, window, scale)
-    return _forward(q, k, v, causal, window, scale, with_lse)
+    return _forward(q, k, v, causal, window, scale, with_lse, q_offset)
 
 
 def _check(q, k, v, window, scale) -> float:
@@ -221,12 +237,13 @@ def _check_cuda(name, tensors) -> None:
                          f"kernel takes one of float32, bfloat16 for all")
 
 
-def _forward(q, k, v, causal, window, scale, with_lse):
+def _forward(q, k, v, causal, window, scale, with_lse, q_offset=0):
     B, Sq, H, D = q.shape
     _, Sk, K, Dv = v.shape
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, with_lse=with_lse)
+                                     scale=scale, with_lse=with_lse,
+                                     q_offset=q_offset)
     _check_cuda("flash_attention", (q, k, v))
     if D % 8 or D > 256 or Dv % 8 or Dv > 256:
         raise ValueError(f"flash_attention: head dims {D}, {Dv} are not "
@@ -251,7 +268,7 @@ def _forward(q, k, v, causal, window, scale, with_lse):
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
-             int(causal), window or 0, scale,
+             int(causal), window or 0, q_offset, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: error {err}")

@@ -96,20 +96,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
-def attention(q, k, v, *, causal: bool = True, window: int | None = None,
-              scale: float | None = None,
+def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+              window: int | None = None, scale: float | None = None,
               valid_len: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped-query attention.  q: (B, Sq, H, D); k: (B, Sk, K, D); v:
-    (B, Sk, K, Dv).
+    (B, Sk, K, Dv).  ``q_offset``: the position of q's first row among
+    the keys (a prompt that continues a cache: its length).
 
     One query token (decode) goes to the decode-attention kernel: rows
     below ``valid_len`` are attended (default 1: a lone token without a
     cache sees itself).  A prompt goes to the flash-attention kernel
-    (top-left causal, optional ``window``); under autograd through its
-    Function, whose backward is the flash backward kernel (the
-    reference's custom VJP).  Windowed decode on a cache
-    that is not a ring is not ported yet; a prompt at a cache offset
-    (chunked prefill) raises in :func:`attn_forward`.
+    (causal q_offset + i >= j, optional ``window``); under autograd, at
+    q_offset 0 only, through its Function, whose backward is the flash
+    backward kernel (the reference's custom VJP).  Windowed decode on a
+    cache that is not a ring is not ported yet.
     """
     B, Sq, H, D = q.shape
     if Sq == 1:
@@ -122,7 +122,7 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
         out = decode_attention(q[:, 0], k, v, valid_len, scale=scale)
         return out[:, None]
     return flash_attention(q, k, v, causal=causal, window=window,
-                           scale=scale)
+                           scale=scale, q_offset=q_offset)
 
 
 def init_attn(cfg, gen: torch.Generator, device, count: int = 1,
@@ -150,11 +150,17 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
     the cache per token), and ``length`` is a host int counting every
     token seen.  A decode step (S = 1 with a cache) takes ``step``, its
     cache row and ``valid_len`` as device tensors made once per step
-    (``transformer._decode_steps``), so it reads no host scalar.
+    (``transformer._decode_steps``), so it reads no host scalar.  A
+    prompt writes rows [length, length + S) and attends to the cache's
+    rows [0, length + S) in place at q offset ``length`` (at length > 0,
+    chunked prefill: the reference's ``dynamic_update_slice`` and
+    ``attention(q_offset=length)``).
     ``local``: sliding-window attention over ``cfg.rec.local_window``;
     its cache of W <= window rows is a ring holding the last W tokens
     (post-RoPE keys, so the rotation survives the wrap), as the
-    reference's (``layers.py`` ring branch).
+    reference's (``layers.py`` ring branch).  A ring takes a prompt at
+    length 0 only: the reference's ring prefill assumes it ("length
+    assumed 0") and would drop the tokens already in the ring.
     """
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -185,23 +191,37 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
             v_cache.index_copy_(1, row, v.to(v_cache.dtype))
             out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
                             valid_len=valid_len)
-        elif length != 0:
-            raise NotImplementedError(
-                "chunked prefill (a prompt at cache offset > 0) is not "
-                "ported yet; see ROADMAP.md")
         elif local:
+            if length != 0:
+                raise NotImplementedError(
+                    "a prompt at a cache offset on a local-attention ring: "
+                    "the reference's ring prefill assumes length 0 and "
+                    "drops the ring's earlier tokens; see ROADMAP.md")
             out = attention(q, k, v, causal=True, window=window)
             _ring_fill(k_cache, v_cache, k, v)
         else:
-            k_cache[:, :S] = k.to(k_cache.dtype)
-            v_cache[:, :S] = v.to(v_cache.dtype)
-            # a fresh prefill attends to its own rows of the cache, as
-            # the reference reads them back
-            out = attention(q, k_cache[:, :S].to(cdt),
-                            v_cache[:, :S].to(cdt))
+            end = _prompt_rows(k_cache, length, S)
+            k_cache[:, length:end] = k.to(k_cache.dtype)
+            v_cache[:, length:end] = v.to(v_cache.dtype)
+            # the prompt attends to the cache's rows up to its own last,
+            # read back as the reference reads them, in place (a view
+            # whose batch stride is the cache's)
+            out = attention(q, k_cache[:, :end].to(cdt),
+                            v_cache[:, :end].to(cdt), q_offset=length)
         new_cache = {"k": k_cache, "v": v_cache, "length": length + S}
     out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
     return out, new_cache
+
+
+def _prompt_rows(cache_t, length: int, S: int) -> int:
+    """The end row of a prompt of ``S`` tokens written at ``length`` into
+    a cache of ``cache_t.shape[1]`` rows; raises if it does not fit (the
+    reference's ``dynamic_update_slice`` would clamp the start)."""
+    end = length + S
+    if end > cache_t.shape[1]:
+        raise ValueError(f"a prompt of {S} tokens at cache length {length} "
+                         f"does not fit a cache of {cache_t.shape[1]} rows")
+    return end
 
 
 def _ring_fill(k_cache, v_cache, k, v) -> None:
@@ -268,8 +288,9 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
     The cache holds the latent ``c_kv`` (rank per token) and the shared
     rope key ``k_rope``, written IN PLACE as in :func:`attn_forward`.
     Keys and values are up-projected from the latent rows on every call,
-    as the reference does: a fresh prefill reads back its own rows (in the
-    cache dtype), and a decode step (which takes ``step``, its cache row
+    as the reference does: a prompt at cache length L reads back rows
+    [0, L + S) (in the cache dtype) and attends at q offset L (L > 0:
+    chunked prefill), and a decode step (which takes ``step``, its cache row
     and ``valid_len`` as device tensors) writes row ``pos`` and
     up-projects all max_len rows, so its shapes are static and the
     kernel masks the rows past ``valid_len``.  q/k heads are nope + rope
@@ -290,6 +311,7 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
     k_rope = apply_rope((x @ p["w_krope"].to(cdt))[:, :, None, :],
                         positions, cfg.rope_theta)[:, :, 0]     # (B,S,rope)
     valid_len = new_cache = None
+    q_offset = 0
     if cache is None:
         c_all, kr_all = c_kv, k_rope
     else:
@@ -300,15 +322,13 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
             c_cache.index_copy_(1, row, c_kv.to(c_cache.dtype))
             kr_cache.index_copy_(1, row, k_rope.to(kr_cache.dtype))
             c_all, kr_all = c_cache.to(cdt), kr_cache.to(cdt)
-        elif length != 0:
-            raise NotImplementedError(
-                "chunked prefill (a prompt at cache offset > 0) is not "
-                "ported yet; see ROADMAP.md")
         else:
-            c_cache[:, :S] = c_kv.to(c_cache.dtype)
-            kr_cache[:, :S] = k_rope.to(kr_cache.dtype)
-            c_all = c_cache[:, :S].to(cdt)
-            kr_all = kr_cache[:, :S].to(cdt)
+            end = _prompt_rows(c_cache, length, S)
+            c_cache[:, length:end] = c_kv.to(c_cache.dtype)
+            kr_cache[:, length:end] = k_rope.to(kr_cache.dtype)
+            c_all = c_cache[:, :end].to(cdt)
+            kr_all = kr_cache[:, :end].to(cdt)
+            q_offset = length
         new_cache = {"c_kv": c_cache, "k_rope": kr_cache, "length": length + S}
     L = c_all.shape[1]
     k_nope = (c_all @ p["w_uk"].to(cdt)).reshape(B, L, H, m.qk_nope_dim)
@@ -317,7 +337,8 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
                   dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    out = attention(q, k, v, causal=True, scale=scale, valid_len=valid_len)
+    out = attention(q, k, v, causal=True, q_offset=q_offset, scale=scale,
+                    valid_len=valid_len)
     out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"].to(cdt)
     return out, new_cache
 

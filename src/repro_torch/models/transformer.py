@@ -12,8 +12,9 @@ names sections), ``attn_local`` (ring cache), ``mla`` (latent cache),
 ``none``.  A stub frontend's embeddings (``models.frontends``) go in as
 ``forward(extra_embeds=...)``.
 
-Training runs :func:`forward` without caches under a rematerialisation
-policy (the reference's ``jax.checkpoint`` around its scan body):
+Training runs :func:`forward` without caches, for every mixer and FFN,
+under a rematerialisation policy (the reference's ``jax.checkpoint``
+around its scan body):
 ``"full"`` recomputes each super-block in the backward
 (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the
 outputs of the plain matrix products (``aten.mm``; no batched ones, as
@@ -22,7 +23,10 @@ the rest, ``"none"`` keeps everything.  A recomputed block launches its
 forward kernels again.  :func:`loss_fn` is the reference's next-token
 cross entropy plus the MoE aux.
 
-A decode step takes its cache position as a device tensor (``pos``):
+A prompt given caches at length L > 0 continues them (chunked prefill):
+its positions start at L, attention writes rows [L, L + S) and attends
+at q offset L, recurrent states carry on.  A decode step takes its
+cache position as a device tensor (``pos``):
 every cache row it writes, its attention mask and its RoPE positions
 are computed from it on the device, so the step holds no host scalar
 and can be captured in a CUDA graph and replayed

@@ -79,9 +79,13 @@ def _mlstm_chunk(q, k, v, log_i, log_f, C0, n0, m0):
     m_t = torch.maximum(log_g, D.amax(dim=-1))             # (B,H,L)
 
     scale = 1.0 / math.sqrt(dh)
-    # inter-chunk contribution: q_t · C0, decayed from chunk start
+    # inter-chunk contribution: C0 q_t, decayed from chunk start.  C0 is
+    # Σ v kᵀ (the step form's layout), so its rows are read against q;
+    # the reference contracts q with C0's first axis instead, q_t·C0 =
+    # (q·v) k, which is wrong whenever C0 != 0: a prompt that continues a
+    # state (chunked prefill) or passes one chunk (ROADMAP.md, Queue 3)
     decay = torch.exp(log_g - m_t)
-    inter = torch.einsum("bhld,bhde->bhle", q, C0) * scale * decay[..., None]
+    inter = torch.einsum("bhle,bhde->bhld", q, C0) * scale * decay[..., None]
     n_inter = torch.einsum("bhld,bhd->bhl", q, n0) * scale * decay
 
     # intra-chunk attention-like contribution

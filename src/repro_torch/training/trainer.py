@@ -7,7 +7,10 @@ f32 master parameters and the optimizer state are the same tensors after
 the step.  As the reference does, the step casts the whole float tree to
 ``cfg.compute_dtype`` before the forward; the gradients come back to the
 f32 masters through the casts and are accumulated over ``accum``
-microbatches in f32 (``.grad``), then averaged.
+microbatches in f32 (``.grad``), then averaged.  Every family the
+reference trains is trained: attention (GQA, MLA), RG-LRU, mLSTM and
+sLSTM mixers, dense and MoE FFNs, and batches that carry a stub
+frontend's ``extra_embeds``.
 """
 from __future__ import annotations
 
@@ -18,10 +21,6 @@ from ..models import transformer
 from . import optimizer as opt_lib
 
 __all__ = ["init_train_state", "make_train_step"]
-
-#: mixers whose training the port does not hold against the reference yet
-_UNTRAINED = {"mla": "MLA", "mlstm": "xLSTM (mLSTM)", "slstm": "xLSTM (sLSTM)"}
-
 
 def init_train_state(cfg: ModelConfig, gen: torch.Generator | None = None,
                      device=None) -> dict:
@@ -39,27 +38,19 @@ def _cast(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    for g in cfg.groups:
-        for mixer in g.pattern:
-            if mixer in _UNTRAINED:
-                raise NotImplementedError(
-                    f"training {_UNTRAINED[mixer]} blocks is not ported yet "
-                    f"(ROADMAP.md Queue 1, item 3: training parity for MLA, "
-                    f"xLSTM and the frontends)")
-
-
 def make_train_step(cfg: ModelConfig, opt: opt_lib.AdamWConfig, *,
                     remat_policy: str = "full", accum: int = 1):
     """Returns ``step(state, batch) -> (state, metrics)``; ``batch`` holds
-    ``tokens`` and ``labels`` (B, S) on the parameters' device.
+    ``tokens`` and ``labels`` (B, S) on the parameters' device, and
+    optionally ``extra_embeds`` (B, P, d), whose P positions the loss
+    skips.
 
-    ``accum > 1``: the batch is split into ``accum`` microbatches run one
-    after another, their gradients summed into the f32 ``.grad`` of each
-    master and divided by ``accum`` (activation memory /= accum).  The
+    ``accum > 1``: the batch is split along B into ``accum`` microbatches
+    (every entry, ``extra_embeds`` too) run one after another, their
+    gradients summed into the f32 ``.grad`` of each master and divided by
+    ``accum`` (activation memory /= accum).  The
     metrics are device scalars: ``loss``, ``aux_loss``, ``tokens``,
     ``grad_norm``, ``lr`` and ``total_loss``."""
-    _check_trainable(cfg)
     if accum < 1:
         raise ValueError(f"accum must be >= 1, got {accum}")
     cdt = getattr(torch, cfg.compute_dtype)
@@ -69,17 +60,12 @@ def make_train_step(cfg: ModelConfig, opt: opt_lib.AdamWConfig, *,
                                    remat_policy=remat_policy)
 
     def step(state: dict, batch: dict) -> tuple[dict, dict]:
-        if batch.get("extra_embeds") is not None:
-            raise NotImplementedError(
-                "training on extra_embeds (stub frontends) is not ported "
-                "yet (ROADMAP.md Queue 1, item 3: training parity for MLA, "
-                "xLSTM and the frontends)")
         params = state["params"]
         masters = opt_lib.leaves(params)
         for p in masters:
             p.requires_grad_(True)
             p.grad = None
-        tokens, labels = batch["tokens"], batch["labels"]
+        tokens = batch["tokens"]
         if accum == 1:
             loss, metrics = loss_of(params, batch)
             loss.backward()
@@ -93,8 +79,8 @@ def make_train_step(cfg: ModelConfig, opt: opt_lib.AdamWConfig, *,
             mb = B // accum
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i in range(accum):
-                part = {"tokens": tokens[i * mb:(i + 1) * mb],
-                        "labels": labels[i * mb:(i + 1) * mb]}
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()
+                        if v is not None}
                 lmb, _ = loss_of(params, part)
                 lmb.backward()
                 loss = loss + lmb.detach()

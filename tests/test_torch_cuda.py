@@ -224,6 +224,48 @@ def test_flash_kernel_tile_edges(cuda, dtype, B, H, K, Sq, D, win, causal):
     _close(out, ref, dtype)
 
 
+# a prompt at a cache offset (chunked prefill): query row i sits at key
+# position q_offset + i; k and v are the cache's first rows, read in place
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,off,D,Dv,win", [
+    (1, 32, 32, 312, 512, 200, 96, 96, None),    # phi3: chunk 2 of 200 + 312
+    (2, 4, 2, 100, 230, 130, 64, 64, None),      # Sk not a multiple of 64
+    (2, 4, 2, 100, 230, 7, 64, 64, None),        # keys past the last row
+    (1, 8, 8, 129, 300, 171, 192, 128, None),    # MLA dims, a row past a tile
+    (1, 4, 1, 70, 333, 263, 256, 256, 100),      # window inside the keys
+    (1, 2, 2, 150, 190, 40, 128, 128, 64),       # window across q tiles
+    (1, 4, 2, 2, 65, 63, 64, 64, None),          # two rows at the end
+    (1, 4, 2, 64, 64, 0, 64, 64, None),          # offset 0
+])
+def test_flash_kernel_at_a_q_offset_matches_plain(cuda, dtype, B, H, K, Sq,
+                                                  Sk, off, D, Dv, win):
+    rng = np.random.default_rng(15)
+    q = _randn(rng, (B, Sq, H, D), dtype, cuda)
+    kc = _randn(rng, (B, Sk + 40, K, D), dtype, cuda)      # a longer cache
+    vc = _randn(rng, (B, Sk + 40, K, Dv), dtype, cuda)
+    k, v = kc[:, :Sk], vc[:, :Sk]
+    scale = 1.0 / np.sqrt(D)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, window=win, scale=scale, q_offset=off,
+                               with_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_plain(*_f32(q, k, v), window=win,
+                                         scale=scale, q_offset=off,
+                                         with_lse=True)
+    _close(out, ref, dtype)
+    _close(lse, ref_lse, torch.float32)
+    assert torch.equal(flash_attention(q, k, v, window=win, scale=scale,
+                                       q_offset=off), out)
+
+
+def test_flash_kernel_at_a_q_offset_has_no_backward(cuda):
+    q = torch.zeros((1, 8, 2, 64), device=cuda, requires_grad=True)
+    kv = torch.zeros((1, 12, 2, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="q offset"):
+        flash_attention(q, kv, kv, q_offset=4)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_reads_strided_heads(cuda, dtype):
     """q, k and v as views of one fused projection (row stride (H + 2K)·D,
@@ -821,6 +863,7 @@ BWD_SHAPES = [
     (1, 4, 2, 33, 16, 16, 5),         # the reduced configs' D 16
     (1, 4, 4, 77, 96, 96, None),      # phi3's D 96 (two boxes), ragged S
     (1, 4, 2, 1000, 64, 64, 256),     # the window's edge inside tiles
+    (1, 128, 128, 2048, 192, 128, None),  # deepseek-v2's MLA train shape
 ]
 
 

@@ -20,6 +20,7 @@ from repro.kernels.decode_attention.ref import decode_attention_ref  # noqa: E40
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.kernels.moe_gating.ref import moe_gating_ref  # noqa: E402
 from repro.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
 from repro_torch.kernels import (decode_attention, decode_attention_plain,  # noqa: E402
                                  flash_attention, flash_attention_bwd_plain,
                                  flash_attention_plain, moe_gating,
@@ -133,6 +134,41 @@ def test_attention_plain_takes_dv_like_pallas_and_ref(dtype, B, H, K, S, D,
     ref = decode_attention_ref(jq[:, 0], jk, jv, jnp.asarray(lens))
     np.testing.assert_allclose(_f32(out), _f32(pallas), **TOLS[dtype])
     np.testing.assert_allclose(_f32(out), _f32(ref), **TOLS[dtype])
+
+
+# a prompt at a cache offset (chunked prefill): query row i at key
+# position q_offset + i, against the reference's chunked online-softmax
+# attention, which its ``attention(q_offset=...)`` runs (there is no
+# Pallas kernel for it)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,K,D,Dv", [(4, 2, 32, 32), (4, 4, 24, 16)])
+@pytest.mark.parametrize("win", [None, 16])
+@pytest.mark.parametrize("offset", [0, 1, 7, "Sk - Sq"])
+def test_flash_plain_at_a_q_offset_matches_the_reference(dtype, H, K, D, Dv,
+                                                         win, offset):
+    B, Sq, Sk = 2, 20, 45
+    off = Sk - Sq if offset == "Sk - Sq" else offset
+    rng = np.random.default_rng(5)
+    scale = 1.0 / np.sqrt(D)
+    jq, tq = _pair(rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+                   dtype)
+    jk, tk = _pair(rng.standard_normal((B, Sk, K, D)).astype(np.float32),
+                   dtype)
+    jv, tv = _pair(rng.standard_normal((B, Sk, K, Dv)).astype(np.float32),
+                   dtype)
+    out, lse = flash_attention(tq, tk, tv, window=win, scale=scale,
+                               q_offset=off, with_lse=True)
+    assert out.dtype == tq.dtype and out.shape == (B, Sq, H, Dv)
+    ref, ref_lse = jl._chunk_scan_attn(jq, jk, jv, causal=True, q_offset=off,
+                                       window=win, q_block=8, kv_block=16,
+                                       scale=scale, with_lse=True)
+    np.testing.assert_allclose(_f32(out), _f32(ref.astype(jq.dtype)),
+                               **TOLS[dtype])
+    # the reference's (B, K, G, padded Sq) against the port's (B, H, Sq)
+    ref_lse = np.asarray(ref_lse)[..., :Sq].reshape(B, H, Sq)
+    np.testing.assert_allclose(_f32(lse), ref_lse, **TOLS[dtype])
+    whole = jl.attention(jq, jk, jv, q_offset=off, window=win, scale=scale)
+    np.testing.assert_allclose(_f32(out), _f32(whole), **TOLS[dtype])
 
 
 def test_wrappers_reject_a_value_cache_of_another_length():

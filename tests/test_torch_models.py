@@ -167,12 +167,85 @@ def test_prefill_logits_and_greedy_tokens_match(rig, prompt_len):
     assert tc[0]["sub0"]["length"] == prompt_len + 8
 
 
-def test_chunked_prefill_is_not_ported_yet(rig):
-    _, tcfg, _, tp = rig
-    tc = tm.init_cache(tcfg, 1, 32, device=CPU)
+def test_a_ring_at_a_cache_offset_still_raises():
+    """A local-attention ring takes a prompt at length 0 only: the
+    reference's ring prefill assumes it (its second chunk attends to its
+    own tokens alone and writes them over ring slots 0..S-1), so its two
+    chunks of a 15-token prompt give logits far from its one-shot
+    prefill's (ROADMAP.md, Queue 3).  The port raises on a second chunk
+    rather than copy that; and on a prompt that does not fit the cache."""
+    jcfg, tcfg = _cfgs(RG)
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    prompt = jnp.asarray(np.random.default_rng(16).integers(
+        0, jcfg.vocab_size, (1, 15)), jnp.int32)
+    whole, _ = prefill(jcfg, jp, prompt, init_cache(jcfg, 1, 64, jnp.float32))
+    _, jc = prefill(jcfg, jp, prompt[:, :10],
+                    init_cache(jcfg, 1, 64, jnp.float32))
+    split, _ = prefill(jcfg, jp, prompt[:, 10:], jc)
+    assert float(jnp.abs(whole - split).max()) > 1.0
+    tp = tm.init_params(tcfg, torch.Generator().manual_seed(0), CPU)
+    tc = tm.init_cache(tcfg, 1, 64, device=CPU)
     _, tc = tm.prefill(tcfg, tp, torch.tensor([[1, 2, 3]]), tc)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
+    with pytest.raises(NotImplementedError, match="ring"):
         tm.prefill(tcfg, tp, torch.tensor([[4, 5]]), tc)
+    _, tcfg = _cfgs(ARCH)
+    tp = tm.init_params(tcfg, torch.Generator().manual_seed(0), CPU)
+    tc = tm.init_cache(tcfg, 1, 8, device=CPU)
+    _, tc = tm.prefill(tcfg, tp, torch.tensor([[1, 2, 3, 4, 5]]), tc)
+    with pytest.raises(ValueError, match="does not fit"):
+        tm.prefill(tcfg, tp, torch.tensor([[6, 7, 8, 9]]), tc)
+
+
+@pytest.mark.parametrize("arch", [ARCH, DSV2, QWEN2VL, XLSTM])
+@pytest.mark.parametrize("split", [5, 16])
+def test_two_chunk_prefill_matches_reference(arch, split):
+    """A 21-token prompt prefilled in two chunks (chunked prefill: the
+    second at cache offset ``split``, after the patch embeddings qwen2-vl's
+    first chunk carries) against the reference's two chunks, each chunk's
+    last-token logits and every cache (f32 on both sides), and against
+    the reference's one-shot prefill of the whole prompt, logits, caches
+    and 4 greedy decode steps.  xLSTM is held against the one-shot prefill
+    only past its first chunk: the reference's mLSTM chunk from a carried
+    state is wrong."""
+    jcfg, tcfg = _cfgs(arch, **_stack(arch))
+    jp = init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    rng = np.random.default_rng(16)
+    prompt = rng.integers(0, jcfg.vocab_size, (1, 21)).astype(np.int32)
+    emb = None
+    if jcfg.frontend == "vision_stub":
+        emb = (rng.standard_normal((1, jcfg.n_visual_tokens, jcfg.d_model))
+               * 0.02).astype(np.float32)
+    jc = init_cache(jcfg, 1, 48, dtype=jnp.float32)
+    tc = tm.init_cache(tcfg, 1, 48, dtype=torch.float32, device=CPU)
+    for i, chunk in enumerate((prompt[:, :split], prompt[:, split:])):
+        extra = emb if i == 0 else None
+        jlog, jc = prefill(jcfg, jp, jnp.asarray(chunk), jc,
+                           extra_embeds=None if extra is None
+                           else jnp.asarray(extra))
+        tlog, tc = tm.prefill(tcfg, tp, torch.from_numpy(chunk), tc,
+                              extra_embeds=None if extra is None
+                              else torch.from_numpy(extra))
+        if i == 0 or arch != XLSTM:
+            # the reference's second mLSTM chunk reads its state wrongly
+            # (test_mlstm_chunk_from_a_state_matches_the_reference_steps)
+            np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    if arch != XLSTM:
+        assert tt._cache_length(tc) == int(jtr._cache_length(jc))
+        _tree_close(tc, jax.tree.map(np.asarray, jc), **TOL)
+    # the reference's one-shot prefill of the whole prompt
+    jlog, jc = prefill(jcfg, jp, jnp.asarray(prompt),
+                       init_cache(jcfg, 1, 48, dtype=jnp.float32),
+                       extra_embeds=None if emb is None else jnp.asarray(emb))
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+    _tree_close(tc, jax.tree.map(np.asarray, jc), **TOL)
+    tok = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+    for _ in range(4):
+        jlog, jc = decode_step(jcfg, jp, jnp.asarray(tok), jc)
+        tlog, tc = tm.decode_step(tcfg, tp, torch.from_numpy(tok).long(), tc)
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
+        tok = np.asarray(jnp.argmax(jlog, -1)).astype(np.int32)
+        assert int(tlog[0].argmax()) == int(tok[0])
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
@@ -643,10 +716,13 @@ def test_reset_cache_restores_init_cache_in_place(arch):
 def test_mlstm_forward_matches_reference(S):
     """One mLSTM block: the step form (S = 1, from the state a 13-token
     prefill left), one chunk (37) and two chunks of 1024 (2048), with and
-    without a state.  At 2048 each output sums 1024 products that cancel
-    (outputs in the hundreds): f32 sums in another order differ there by
-    up to ~1e-4 of the output's largest value, so the absolute part of
-    TOL scales with it."""
+    without a state.  At 2048 the reference is its step form run token by
+    token (the exact recurrence): its chunk form's second chunk reads the
+    state the first left wrongly
+    (test_mlstm_chunk_from_a_state_matches_the_reference_steps).  At 2048
+    each output sums 1024 products that cancel (outputs in the hundreds):
+    f32 sums in another order differ there by up to ~1e-4 of the output's
+    largest value, so the absolute part of TOL scales with it."""
     jcfg, tcfg = _cfgs(XLSTM)
     jp = jx.init_mlstm_block(jcfg, jax.random.PRNGKey(5))
     tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
@@ -655,7 +731,10 @@ def test_mlstm_forward_matches_reference(S):
                              jcfg.d_model)).astype(np.float32)
     js = jx.init_mlstm_state(jcfg, 2)
     ts = {k: v[0] for k, v in tx.init_mlstm_state(tcfg, 2, CPU).items()}
-    jout, js = jx.mlstm_forward(jcfg, jp, jnp.asarray(x), js)
+    if S > 1024:
+        jout, js = _mlstm_steps(jcfg, jp, x)
+    else:
+        jout, js = jx.mlstm_forward(jcfg, jp, jnp.asarray(x), js)
     tout, ts = tx.mlstm_forward(tcfg, tp, torch.from_numpy(x), ts)
     if S == 1:
         x1 = rng.standard_normal((2, 1, jcfg.d_model)).astype(np.float32)
@@ -672,11 +751,57 @@ def test_mlstm_forward_matches_reference(S):
     for k in ts:
         np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]),
                                    **scaled(np.asarray(js[k])))
-    jno, _ = jx.mlstm_forward(jcfg, jp, jnp.asarray(x))
+    jno = jout if S > 1024 else jx.mlstm_forward(jcfg, jp, jnp.asarray(x))[0]
     tno, none = tx.mlstm_forward(tcfg, tp, torch.from_numpy(x))
     assert none is None
     np.testing.assert_allclose(tno.numpy(), np.asarray(jno),
                                **scaled(np.asarray(jno)))
+
+
+def _mlstm_steps(jcfg, jp, x):
+    """The reference's mLSTM run token by token in its step form (the
+    exact recurrence), from the initial state: outputs and final state."""
+    def body(state, xt):
+        out, state = jx.mlstm_forward(jcfg, jp, xt[:, None], state)
+        return state, out[:, 0]
+
+    state, outs = jax.jit(lambda xs: jax.lax.scan(
+        body, jx.init_mlstm_state(jcfg, xs.shape[0]), xs.swapaxes(0, 1)))(
+            jnp.asarray(x))
+    return outs.swapaxes(0, 1), state
+
+
+def test_mlstm_chunk_from_a_state_matches_the_reference_steps():
+    """A 21-token input run as chunks of 5 and 16 from the state the
+    first leaves (chunked prefill; a prompt past one chunk does the same)
+    against the reference's exact recurrence, its step form token by
+    token.  The reference's own chunk form contracts q with the carried
+    C0's first axis, (q·v) k instead of C0 q = v (k·q), so its second
+    chunk is far off (ROADMAP.md, Queue 3); its first chunk, from C0 = 0,
+    is right."""
+    jcfg, tcfg = _cfgs(XLSTM)
+    jp = jx.init_mlstm_block(jcfg, jax.random.PRNGKey(5))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp), CPU)
+    x = np.random.default_rng(5).standard_normal(
+        (2, 21, jcfg.d_model)).astype(np.float32)
+    js, steps = jx.init_mlstm_state(jcfg, 2), []
+    for t in range(21):
+        out, js = jx.mlstm_forward(jcfg, jp, jnp.asarray(x[:, t:t + 1]), js)
+        steps.append(np.asarray(out))
+    want = np.concatenate(steps, axis=1)
+    ts = {k: v[0] for k, v in tx.init_mlstm_state(tcfg, 2, CPU).items()}
+    jc = jx.init_mlstm_state(jcfg, 2)
+    got, ref = [], []
+    for sl in (slice(0, 5), slice(5, 21)):
+        out, ts = tx.mlstm_forward(tcfg, tp, torch.from_numpy(x[:, sl]), ts)
+        got.append(out.numpy())
+        out, jc = jx.mlstm_forward(jcfg, jp, jnp.asarray(x[:, sl]), jc)
+        ref.append(np.asarray(out))
+    np.testing.assert_allclose(np.concatenate(got, axis=1), want, **TOL)
+    for k in ts:
+        np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]), **TOL)
+    np.testing.assert_allclose(ref[0], want[:, :5], **TOL)
+    assert np.abs(ref[1] - want[:, 5:]).max() > 1.0
 
 
 def test_mlstm_prompt_past_a_chunk_must_be_a_multiple_of_it():

@@ -1,9 +1,11 @@
 """The port's training path against the JAX package's: schedules, AdamW
 leaf by leaf, the flash-attention and RG-LRU-scan backwards (plain
 versions) against ``jax.vjp`` of the reference's functions, ``loss_fn``
-and its gradients for reduced minicpm-2b (dense), recurrentgemma (hybrid)
-and llama4 (MoE, the router's gradient and the aux) under every remat
-policy, three train steps with and without accumulation, checkpoints
+and its gradients for reduced minicpm-2b (dense), recurrentgemma (hybrid),
+llama4 (MoE, the router's gradient and the aux), deepseek-v2 (MLA),
+xLSTM (mLSTM and sLSTM) and qwen2-vl (M-RoPE, patch embeddings in the
+batch) under every remat policy, three train steps with and without
+accumulation, checkpoints
 (round trip, atomicity, gc, and a checkpoint of either package restored
 by the other), the data pipeline, and the train launcher on the CPU.
 Inputs are made from seeds with numpy or by the reference and carried
@@ -22,7 +24,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config, reduced  # noqa: E402
+from repro.configs.base import LayerGroup  # noqa: E402
 from repro.data import SyntheticSource as JSource  # noqa: E402
+from repro.models import frontends as jfront  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models import recurrent as jrec  # noqa: E402
 from repro.models import transformer as jtr  # noqa: E402
@@ -48,7 +52,13 @@ from repro_torch.training.checkpoint import _flatten  # noqa: E402
 CPU = torch.device("cpu")
 MINICPM, RG = "minicpm-2b", "recurrentgemma-2b"
 LLAMA4 = "llama4-maverick-400b-a17b"
-FAMILIES = (MINICPM, RG, LLAMA4)
+DSV2, XLSTM, QWEN2VL = "deepseek-v2-236b", "xlstm-1.3b", "qwen2-vl-7b"
+FAMILIES = (MINICPM, RG, LLAMA4, DSV2, XLSTM, QWEN2VL)
+#: xLSTM trains the reference's canary stack (one mLSTM and one sLSTM
+#: block, twice): the reduced 16-block stack turns a last-bit difference
+#: into a logit difference past 0.1 in the reference itself
+#: (tests/test_torch_models.py::XLSTM_STACK)
+XLSTM_STACK = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
 #: schedules: f32 on both sides, pow/cos may differ in the last bit
 SCHED_TOL = dict(rtol=1e-6, atol=1e-6)
 #: AdamW: the same f32 operations, some fused differently
@@ -79,6 +89,17 @@ def _np(x):
     return np.asarray(x)
 
 
+def _tree_np(tree):
+    """A nested tree of tensors as the same tree of numpy copies: JAX on
+    the CPU may alias a numpy array's memory, which the port's step then
+    updates in place while JAX's asynchronous step still reads it."""
+    if isinstance(tree, dict):
+        return {k: _tree_np(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_np(v) for v in tree]
+    return np.array(_np(tree), copy=True)
+
+
 def _flat_np(tree) -> dict:
     return {k: _np(v) for k, v in _flatten(tree).items()}
 
@@ -91,17 +112,27 @@ def _assert_trees_close(got, want, **tol):
 
 
 def _cfgs(arch, **kw):
-    """The same reduced config from each package, at f32 compute."""
+    """The same reduced config from each package, at f32 compute (xLSTM:
+    its canary stack)."""
+    if arch == XLSTM:
+        kw.setdefault("groups", XLSTM_STACK)
     return (dataclasses.replace(reduced(get_config(arch)),
                                 compute_dtype="float32", **kw),
             dataclasses.replace(tconfigs.reduced(tconfigs.get_config(arch)),
                                 compute_dtype="float32", **kw))
 
 
-def _batch(vocab, B=4, S=16, seed=0):
+def _batch(vocab, B=4, S=16, seed=0, cfg=None):
+    """A SyntheticSource batch with masked labels; for the vision stub
+    (``cfg``) also the reference's ``make_patch_embeds`` from ``seed``, as
+    f32 numpy (bf16 widens exactly)."""
     b = JSource(vocab, seed=seed).batch(0, B, S)
     b["labels"] = b["labels"].copy()
     b["labels"][0, :3] = -100                     # masked labels
+    if cfg is not None and cfg.frontend == "vision_stub":
+        b["extra_embeds"] = np.asarray(jfront.make_patch_embeds(
+            jax.random.PRNGKey(100 + seed), B, cfg.n_visual_tokens,
+            cfg.d_model).astype(jnp.float32))
     return b
 
 
@@ -269,7 +300,7 @@ def family(request):
     batch, the batch)."""
     jcfg, tcfg = _cfgs(request.param)
     jstate = jtrainer.init_train_state(jcfg, jax.random.PRNGKey(0))
-    batch = _batch(jcfg.vocab_size)
+    batch = _batch(jcfg.vocab_size, cfg=jcfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     (loss, aux), grads = jax.jit(jax.value_and_grad(
         lambda p: jtr.loss_fn(jcfg, p, jb, remat_policy="none"),
@@ -310,25 +341,36 @@ def test_loss_and_grads_match_reference(family, remat):
         assert float(aux["aux_loss"]) > 0
 
 
-def test_untrained_mixers_and_frontends_raise():
-    opt = AdamWConfig(schedule=cosine_schedule(1e-3, 1, 10))
-    for arch in ("deepseek-v2-236b", "xlstm-1.3b"):
-        cfg = tconfigs.reduced(tconfigs.get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(cfg, opt)
-    cfg = tconfigs.reduced(tconfigs.get_config(MINICPM))
-    step = make_train_step(cfg, opt, remat_policy="none")
-    state = init_train_state(cfg, torch.Generator().manual_seed(0), CPU)
-    batch = _torch_batch(_batch(cfg.vocab_size, B=1, S=4))
-    batch["extra_embeds"] = torch.zeros((1, 2, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step(state, batch)
+def test_a_gradient_at_a_q_offset_still_raises():
+    """A prompt at a cache offset is not differentiated: the reference's
+    custom VJP covers q_offset 0 only, so the Function refuses a gradient
+    there, through the layer as through the wrapper; without a gradient
+    the same call runs."""
+    q = torch.zeros((1, 4, 2, 16), requires_grad=True)
+    kv = torch.zeros((1, 9, 2, 16))
+    with pytest.raises(NotImplementedError, match="q offset"):
+        flash_attention(q, kv, kv, q_offset=5)
+    from repro_torch.models.layers import attention
+    with pytest.raises(NotImplementedError, match="q offset"):
+        attention(q, kv, kv, q_offset=5)
+    with torch.no_grad():
+        assert attention(q, kv, kv, q_offset=5).shape == (1, 4, 2, 16)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention(q.detach(), kv, kv, q_offset=-1)
 
 
 @pytest.mark.parametrize("arch,accum,remat", [
     (MINICPM, 1, "none"), (MINICPM, 2, "full"), (RG, 1, "dots"),
-    (LLAMA4, 2, "full")])
+    (LLAMA4, 2, "full"), (DSV2, 2, "full"), (XLSTM, 1, "dots"),
+    (QWEN2VL, 1, "full")])
 def test_three_train_steps_match_reference(arch, accum, remat):
+    """Three AdamW steps of each package from one state: per-step losses,
+    gradient norm and lr at MODEL_TOL, params at STEP_TOL.  xLSTM's steps
+    start each from the port's state carried into the reference: Adam's
+    first step moves its weights apart by up to lr·r (STEP_TOL's note),
+    and its exponential gates turn that into more than MODEL_TOL of the
+    next step's gradient norm, in either package; its gradients at one
+    state agree at MODEL_TOL."""
     jcfg, tcfg = _cfgs(arch)
     jstate = jtrainer.init_train_state(jcfg, jax.random.PRNGKey(1))
     tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate), CPU)
@@ -339,7 +381,9 @@ def test_three_train_steps_match_reference(arch, accum, remat):
                                              accum=accum))
     tstep = make_train_step(tcfg, topt_cfg, remat_policy=remat, accum=accum)
     for i in range(3):
-        batch = _batch(jcfg.vocab_size, seed=i)
+        batch = _batch(jcfg.vocab_size, seed=i, cfg=jcfg)
+        if arch == XLSTM:
+            jstate = jax.tree.map(jnp.asarray, _tree_np(tstate))
         jstate, jm = jstep(jstate, {k: jnp.asarray(v)
                                     for k, v in batch.items()})
         tstate, tm = tstep(tstate, _torch_batch(batch))
@@ -348,6 +392,30 @@ def test_three_train_steps_match_reference(arch, accum, remat):
                                        **MODEL_TOL, err_msg=f"step {i} {k}")
     _assert_trees_close(tstate["params"], jstate["params"], **STEP_TOL)
     assert int(tstate["opt"]["step"]) == 3
+
+
+def test_accumulation_splits_the_patch_embeddings_with_the_batch():
+    """accum 2 on a qwen2-vl batch that carries patch embeddings: each
+    microbatch takes its own rows of them, as the reference's step splits
+    every entry of the batch along B.  One step from one state: loss,
+    total loss and gradient norm against the reference's accum-2 step at
+    MODEL_TOL.  (Its params are not compared at STEP_TOL: an element of
+    layer 0's wk whose gradient is a sum that cancels below Adam's eps
+    moves past STEP_TOL there, by up to lr·r.)"""
+    jcfg, tcfg = _cfgs(QWEN2VL)
+    jstate = jtrainer.init_train_state(jcfg, jax.random.PRNGKey(1))
+    tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate), CPU)
+    batch = _batch(jcfg.vocab_size, seed=3, cfg=jcfg)
+    assert batch["extra_embeds"].shape[:2] == (4, jcfg.n_visual_tokens)
+    jopt_cfg = jopt.AdamWConfig(schedule=jopt.wsd_schedule(1e-3, 1, 10, 5))
+    topt_cfg = AdamWConfig(schedule=wsd_schedule(1e-3, 1, 10, 5))
+    _, jm = jax.jit(jtrainer.make_train_step(jcfg, jopt_cfg, accum=2))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    _, tm = make_train_step(tcfg, topt_cfg, accum=2)(tstate,
+                                                      _torch_batch(batch))
+    for k in ("total_loss", "loss", "grad_norm", "tokens"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), **MODEL_TOL,
+                                   err_msg=k)
 
 
 def test_bf16_compute_trains_the_router():
@@ -535,3 +603,16 @@ def test_train_launcher_on_cpu(capsys, tmp_path):
                        "--steps", "1", "--batch", "2", "--seq", "16",
                        "--remat", "full", "--ckpt-dir", ck, "--resume"]) == 0
     assert "resumed from step 4" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", [DSV2, XLSTM, QWEN2VL])
+def test_train_launcher_trains_mla_xlstm_and_the_vision_backbone(capsys,
+                                                                 arch):
+    """The launcher trains the families ``make_train_step`` refused
+    before, on text tokens as the reference's launcher feeds them."""
+    from repro_torch.launch import train
+
+    assert train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--steps", "2", "--batch", "2", "--seq", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "step 2: loss=" in out and "nan" not in out
