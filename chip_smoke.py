@@ -98,6 +98,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    attention and mLSTM products, formula printed, recomputation not
    counted) and peak memory.
 
+7. distributed, held at world size 1: a one-rank NCCL group (in-memory
+   store) and the 1x1 ``("data", "model")`` smoke mesh on the card, torn
+   down at the end; phi3-mini-3.8b at full width and depth (bf16
+   compute, seed-0 weights) as a pipeline of 4 stages of 8 blocks over
+   4 microbatches of 1 x 512, scheduled by the Executor over three
+   ``DeviceBin(cuda:0)`` stage slots and one live ``MeshBin`` (its pulls
+   land as DTensors): each microbatch's logits against ``forward`` at
+   the bf16 gate, the same greedy tokens, flash = 128, the wall time,
+   the simulated makespan and ``pipeline_schedule_length``;
+   ``flash_decode_update`` against the decode kernel at phi3's decode
+   shape (cache 1024, at 517), bf16 and f32; ``_moe_shard_map`` against
+   ``_moe_local`` on deepseek-v2's MoE layer (E 160, top-6, 2 shared,
+   bf16) and 512 tokens, moe_gating = 1.
+
 Phase 3 also holds the forward's log-sum-exp output and the two
 backward kernels (``flash_attention_bwd`` at the three train shapes in
 bf16, on the tensor cores, and a small f32 one, with SDPA's backward as
@@ -1348,6 +1362,234 @@ def train_phase(torch, dev, cfg, *, batch: int, seq: int, steps: int,
     return counts
 
 
+def distributed_phase(torch, dev, card: str) -> dict:
+    """Phase 7, the distributed layer held at world size 1: a one-rank
+    NCCL group and the 1x1 smoke mesh on ``dev`` (no fallback; torn down
+    at the end), then :func:`pipeline_case`, :func:`flash_decode_case`
+    and :func:`moe_ep_case`.  Returns the launch counts of the pipeline
+    run and of the expert-parallel call."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    if dist.is_initialized():
+        raise AssertionError("a process group is up before the distributed "
+                             "phase")
+    t0 = time.perf_counter()
+    mesh = make_smoke_mesh(dev)
+    print(f"[{card}] distributed: {dist.get_backend()} group of "
+          f"{dist.get_world_size()} rank, mesh {mesh} up in "
+          f"{time.perf_counter() - t0} s")
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        raise AssertionError("the smoke mesh is not an NCCL mesh on the card")
+    try:
+        pipe = pipeline_case(torch, dev, card, mesh)
+        flash_decode_case(torch, dev, card, mesh)
+        moe = moe_ep_case(torch, dev, card, mesh)
+    finally:
+        dist.destroy_process_group()
+    return {"pipeline": pipe, "moe": moe}
+
+
+def _zero_counts():
+    from repro_torch import kernels
+    for name in COUNTED:
+        getattr(kernels, name).launches = 0
+
+
+def _read_counts() -> dict:
+    from repro_torch import kernels
+    return {name: getattr(kernels, name).launches for name in COUNTED}
+
+
+def pipeline_case(torch, dev, card: str, mesh) -> dict:
+    """phi3-mini-3.8b at full width and depth, bf16 compute, seed-0
+    weights, cut into 4 stages of 8 blocks (stage 0 also embeds, stage 3
+    also norms and projects), 4 microbatches of B 1 x S 512, through
+    ``build_pipeline_graph`` and the Executor (``DEFAULT_SCHED``) over
+    ``stage_bins`` of three ``DeviceBin(cuda:0)`` and one live 1x1
+    ``MeshBin``.  Each stage's weights are a host tree (bf16 CPU
+    tensors) pulled leaf by leaf.  Each microbatch's logits against
+    ``forward`` of it alone at the bf16 gate, the same greedy token at the
+    last position; 128 flash launches (32 blocks x 4 microbatches); the
+    mesh slice ran a stage.  Prints the wall time, the simulated makespan
+    of the same placement and ``pipeline_schedule_length``."""
+    import numpy as np
+
+    from repro_torch.configs import DEFAULT_SCHED, get_config
+    from repro_torch.core import Executor
+    from repro_torch.core.graph import map_tree
+    from repro_torch.distributed.pipeline import (build_pipeline_graph,
+                                                  pipeline_schedule_length)
+    from repro_torch.models import cast_params, forward, init_params
+    from repro_torch.models.transformer import pipeline_stages
+    from repro_torch.sched import (CostModel, DeviceBin, MeshBin, simulate,
+                                   stage_bins)
+
+    cfg = get_config(PHI3)
+    params = cast_params(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stages = pipeline_stages(cfg, params, 4)
+    for st in stages:
+        st.params = map_tree(lambda t: t.cpu(), st.params)
+    host_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    mbs = [rng.integers(0, cfg.vocab_size, size=(1, 512)) for _ in range(4)]
+    (mesh_bin,) = MeshBin.from_mesh(mesh)
+    pool = stage_bins([DeviceBin(dev), DeviceBin(dev), DeviceBin(dev),
+                       mesh_bin])
+    out: list = []
+    G = build_pipeline_graph(stages, mbs, collect=out)
+    _zero_counts()
+    t0 = time.perf_counter()
+    with Executor(num_workers=DEFAULT_SCHED.host_workers, devices=pool,
+                  scheduler=DEFAULT_SCHED.policy) as ex:
+        ex.run(G).result(timeout=600)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    placement = {n.id: n.device for n in G.nodes if n.device is not None}
+    on = {n.state["stage"]: n.device.label for n in G.nodes
+          if n.state.get("stage") is not None and n.name.startswith("f[")}
+    costs = [st.cost for st in stages]
+    sim = simulate(G, placement, pool, cost_model=CostModel()).makespan
+    bound = pipeline_schedule_length(len(stages), len(mbs), costs)
+    print(f"[{card}] pipeline {cfg.arch_id} full width ({cfg.n_layers} "
+          f"blocks, {cfg.compute_dtype} compute) in 4 stages x 4 "
+          f"microbatches of 1 x 512: stages on "
+          f"{on}, costs {costs}; wall {wall} s (weight pulls included; "
+          f"host copies of the weights made in {host_s} s before it); "
+          f"simulated makespan of the same placement {sim} s (default "
+          f"CostModel); pipeline_schedule_length {bound} cost units")
+    if mesh_bin.label not in {v.split(":", 1)[1] for v in on.values()}:
+        raise AssertionError("no stage ran on the mesh slice")
+    _check_counts(counts, {"flash_attention": 128})
+    t0 = time.perf_counter()
+    for n, tokens in enumerate(mbs):
+        want, _ = forward(cfg, params, torch.as_tensor(tokens, device=dev))
+        got = torch.as_tensor(out[n], device=dev)
+        err = _check(torch, f"pipeline microbatch {n}", got, want,
+                     "bfloat16")
+        same = int(got[0, -1].argmax()) == int(want[0, -1].argmax())
+        print(f"[{card}] microbatch {n}: logits {tuple(got.shape)} max abs "
+              f"diff to forward {err} (bitwise: {bool(torch.equal(got, want))}"
+              f"); greedy last token {int(got[0, -1].argmax())} vs "
+              f"{int(want[0, -1].argmax())}")
+        if not same:
+            raise AssertionError("the pipeline's greedy token differs from "
+                                 "forward's")
+    print(f"[{card}] forward of the 4 microbatches one by one: "
+          f"{time.perf_counter() - t0} s (comparison included)")
+    del params, stages, G, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_empty = getattr(torch._C, "_host_emptyCache", None)
+    if host_empty is not None:
+        host_empty()                      # the pinned staging buffers
+    return counts
+
+
+def flash_decode_case(torch, dev, card: str, mesh) -> None:
+    """``flash_decode_update`` at world size 1 at phi3's decode shape (B
+    1, H = K = 32, D 96, cache 1024, writing row 517), bf16 and f32,
+    against the decode kernel over the cache with the row written, at the
+    gate of the decode rows in phase 3; the cache rows updated in place
+    are the row written.  Times both."""
+    from repro_torch.distributed.flash_decode import flash_decode_update
+    from repro_torch.kernels import decode_attention
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    B, H, K, D, S, length = 1, 32, 32, 96, 1024, 517
+    for dtype in (torch.bfloat16, torch.float32):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        q, kn, vn = randn(B, 1, H, D), randn(B, 1, K, D), randn(B, 1, K, D)
+        kc, vc = randn(B, S, K, D), randn(B, S, K, D)
+        kw, vw = kc.clone(), vc.clone()
+        kw[:, length], vw[:, length] = kn[:, 0], vn[:, 0]
+        valid = torch.full((B,), length + 1, dtype=torch.int32, device=dev)
+        want = decode_attention(q[:, 0], kw, vw, valid)
+        pos = torch.tensor([length], device=dev)
+        kg, vg = kc.clone(), vc.clone()
+        out, _, _ = flash_decode_update(q, kn, vn, kg, vg, pos, mesh=mesh,
+                                        baxes=("data",), maxis="model")
+        name = f"flash_decode_update {str(dtype)[6:]}"
+        err = _check(torch, name, out[:, 0], want.float(), str(dtype)[6:])
+        if not (torch.equal(kg, kw) and torch.equal(vg, vw)):
+            raise AssertionError(f"{name}: the cache update differs")
+        ms = _median_ms(torch, lambda: flash_decode_update(
+            q, kn, vn, kg, vg, pos, mesh=mesh, baxes=("data",),
+            maxis="model"), flush)
+        kernel_ms = _median_ms(torch, lambda: decode_attention(
+            q[:, 0], kw, vw, valid), flush)
+        print(f"[{card}] {name} at world size 1, B {B} H {H} K {K} D {D} "
+              f"cache {S} at {length}: max abs err to the decode kernel "
+              f"{err} (atol {ATOL} + {RTOL[str(dtype)[6:]]}·|ref|); "
+              f"{ms} ms (plain torch, 3 NCCL all_reduce included) vs the "
+              f"decode kernel {kernel_ms} ms (CUDA events, L2 flushed)")
+
+
+def moe_ep_case(torch, dev, card: str, mesh) -> dict:
+    """``_moe_shard_map`` at world size 1 on deepseek-v2's MoE layer at
+    full width (E 160, top-6, 2 shared experts, bf16 weights drawn from
+    seed 0) and 512 bf16 tokens, against ``_moe_local`` plus the shared
+    experts at the bf16 gate; its gating launch is counted (the
+    comparison's is not)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import ffn_forward
+
+    cfg = dataclasses.replace(get_config(DSV2), param_dtype="bfloat16")
+    cdt = torch.bfloat16
+    p = M.init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev, 1)
+    p = {k: ({n: t[0] for n, t in v.items()} if isinstance(v, dict)
+             else v[0]) for k, v in p.items()}
+    x = torch.randn((1, 512, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(cdt)
+    _zero_counts()
+    got, _ = M._moe_shard_map(cfg, p, x, cdt, mesh, ("data",), "model")
+    torch.cuda.synchronize(dev)
+    counts = _read_counts()
+    want, _ = M._moe_local(cfg, p, x, cdt)
+    want = want + ffn_forward(cfg, p["shared"], x)
+    err = _check(torch, "expert-parallel MoE", got, want.float(), "bfloat16")
+    times = {}
+    for name, fn in (("_moe_shard_map", lambda: M._moe_shard_map(
+            cfg, p, x, cdt, mesh, ("data",), "model")),
+            ("_moe_local", lambda: M._moe_local(cfg, p, x, cdt))):
+        fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize(dev)
+        times[name] = (time.perf_counter() - t0) / 5 * 1e3
+    # the dispatch buffer's all_to_all alone, on the card's clock
+    buf = torch.zeros((cfg.moe.n_experts, M._capacity(cfg, 512),
+                       cfg.d_model), dtype=cdt, device=dev)
+    a2a_ms = _median_ms(torch, lambda: M._all_to_all(buf, mesh, "model", 0,
+                                                     1), flush=buf, reps=5)
+    print(f"[{card}] _moe_shard_map at world size 1, deepseek-v2 MoE layer "
+          f"(E {cfg.moe.n_experts}, top-{cfg.moe.top_k}, "
+          f"{cfg.moe.n_shared} shared; bf16) on 512 tokens: max abs diff to "
+          f"_moe_local + shared {err} (bitwise: {bool(torch.equal(got, want))}"
+          f"); {times['_moe_shard_map']} ms a call (shared experts and 2 "
+          f"NCCL all_to_all included) vs _moe_local {times['_moe_local']} "
+          f"ms (shared experts not included); host clock over 5 calls; "
+          f"one all_to_all of the {tuple(buf.shape)} bf16 dispatch buffer "
+          f"{a2a_ms} ms (CUDA events)")
+    _check_counts(counts, {"moe_gating": 1})
+    del p, x, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1506,6 +1748,13 @@ def main() -> int:
         dataclasses.replace(qwen.groups[0], count=4),)), 1, 1024, 4,
         {"flash_attention": 8, "flash_attention_bwd": 4},
         cut="cut to 4 of 28 layers")
+
+    # the distributed layer at world size 1 (phase 7)
+    dist = distributed_phase(torch, dev, card)
+    for k, n in dist["pipeline"].items():
+        launches[k][f"{PHI3} pipeline, 4 stages (world size 1)"] = n
+    for k, n in dist["moe"].items():
+        launches[k][f"{DSV2} expert-parallel MoE (world size 1)"] = n
 
     for name, row in chosen.items():
         row["launches"] = sum(launches[name].values())

@@ -44,12 +44,13 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from .graph import Heteroflow, KernelTask, Node, PullTask, TaskType, _span_view
+from .graph import (Heteroflow, KernelTask, Node, PullTask, TaskType,
+                    _span_view, map_tree, span_nbytes)
 from .memory import DeviceArena, OutOfMemory
 from .placement import estimate_node_cost
 from .streams import (LaneRegistry, ScopedDeviceContext, bin_labels,
-                      dedup_labels, execution_target, lane_kind,
-                      torch_device)
+                      dedup_labels, execution_target, is_dtensor, lane_kind,
+                      live_mesh, torch_device)
 
 __all__ = ["Executor", "Topology"]
 
@@ -152,7 +153,9 @@ class _FusedBatch:
 
 def _tensor_leaves(value: Any) -> list:
     """Tensors in a kernel result or pull buffer, walking tuples, lists
-    and dicts."""
+    and dicts (a DTensor: its local tensor)."""
+    if is_dtensor(value):
+        return [value.to_local()]
     if isinstance(value, torch.Tensor):
         return [value]
     if isinstance(value, (tuple, list)):
@@ -172,6 +175,87 @@ def _head_bin(v: _Worker) -> str | None:
         return v.deque[0].bin_key
     except IndexError:
         return None
+
+
+def _host_tensor(x: Any) -> torch.Tensor:
+    """A host leaf (array or CPU tensor) as a CPU tensor, no copy."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _pinned(x: Any) -> torch.Tensor:
+    """A pinned host copy of a host leaf, the source of a non-blocking
+    H2D copy."""
+    if isinstance(x, torch.Tensor):
+        pinned = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        pinned.copy_(x)
+        return pinned
+    src = np.ascontiguousarray(x)
+    dtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
+    pinned = torch.empty(src.shape, dtype=dtype, pin_memory=True)
+    np.copyto(pinned.numpy(), src)
+    return pinned
+
+
+def _numpy_or_tensor(t: torch.Tensor) -> Any:
+    """A host copy as numpy, or as a CPU tensor where numpy has no such
+    dtype (bf16)."""
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _local_block(x: Any, mesh: Any, places: tuple) -> torch.Tensor:
+    """This rank's block of host leaf ``x`` under DTensor ``places`` on
+    ``mesh``: ``torch.chunk`` of each sharded dim (DTensor's ``Shard``
+    split) at this rank's coordinate, the whole dim elsewhere."""
+    t = _host_tensor(x)
+    for mdim, p in enumerate(places):
+        if p.is_shard():
+            parts = torch.chunk(t, mesh.size(mdim), dim=p.dim)
+            c = mesh.get_local_rank(mdim)
+            t = parts[c] if c < len(parts) else t.narrow(p.dim, 0, 0)
+    return t
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def _zip_tree(a: Any, b: Any) -> Any:
+    """Two trees of one structure as one tree of ``(a_leaf, b_leaf)``."""
+    if isinstance(a, dict):
+        return {k: _zip_tree(a[k], b[k]) for k in a}
+    if isinstance(a, list):
+        return [_zip_tree(x, y) for x, y in zip(a, b)]
+    return (a, b)
+
+
+def _onto_bin(value: Any, device: Any) -> Any:
+    """``value`` (a kernel result, or tuples/lists/dicts of them) as a
+    kernel on bin ``device`` reads it: on a live mesh slice every tensor
+    is a DTensor of that mesh (a plain tensor, whole on this rank,
+    becomes a replicated one on the slice's device), elsewhere a DTensor
+    is gathered whole."""
+    if isinstance(value, (tuple, list)):
+        return type(value)(_onto_bin(v, device) for v in value)
+    if isinstance(value, dict):
+        return {k: _onto_bin(v, device) for k, v in value.items()}
+    if not isinstance(value, torch.Tensor):
+        return value
+    mesh = live_mesh(device)
+    if is_dtensor(value):
+        if mesh is not None and value.device_mesh is mesh:
+            return value
+        value = value.full_tensor()
+    if mesh is None:
+        return value
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(value.to(torch_device(device)), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
 
 
 class Executor:
@@ -1141,20 +1225,26 @@ class Executor:
         node.state.pop("spilled", None)     # fresh pull supersedes a spill
         if arena is not None and "arena_off" not in node.state:
             node.state["arena_off"] = self._arena_allocate(
-                node.device, arena, node, max(host.nbytes, 1))
+                node.device, arena, node, max(span_nbytes(host), 1))
         node.state["device_data"] = buf
         lane.record(buf, event=node.state.get("ready"))
 
-    def _device_put(self, node: Node, host: np.ndarray) -> Any:
+    def _device_put(self, node: Node, host: Any) -> Any:
         """Transfer ``host`` onto ``node``'s assigned bin (shared by the
         pull path and the spill-refill path).  Returns ``host`` itself
         for host bins — the no-transfer case.
 
-        On a CUDA bin the span is staged in a pinned host tensor and
-        copied with ``non_blocking=True`` on the bin's copy stream; the
-        event recorded after the copy lands in ``node.state["ready"]``
-        for the consumers to wait on.  On the CPU the span is copied (a
-        pull snapshots its source, as a device copy would)."""
+        ``host`` is an array, a CPU tensor, or a tree of them (a dict
+        pull; the result is the same tree).  On a CUDA bin each leaf is
+        staged in a pinned host tensor and copied with
+        ``non_blocking=True`` on the bin's copy stream; ONE event recorded
+        after the last copy lands in ``node.state["ready"]`` for the
+        consumers to wait on.  On the CPU each leaf is copied (a pull
+        snapshots its source, as a device copy would).  On a live mesh
+        slice (``put_target`` gives its mesh and placements) each leaf
+        becomes a ``DTensor`` of those placements: this rank copies its
+        own block of the host leaf onto its device of the slice (the
+        reference's ``device_put`` onto a ``NamedSharding``)."""
         sharding = node.state.get("sharding")
         eff = execution_target(node.device)  # stage slots → member bin
         kind = getattr(eff, "kind", None)
@@ -1166,40 +1256,57 @@ class Executor:
             target = eff.put_target()
         else:
             target = eff
+        mesh = places = None
+        if isinstance(target, tuple):       # a live slice: (mesh, placements)
+            mesh, places = target
+            target = torch_device(node.device)
         if not isinstance(target, torch.device):
             raise ValueError(
                 f"pull '{node.name}': bin {node.device!r} has no "
                 f"torch.device to copy onto")
-        src = np.ascontiguousarray(host)
+        leaves = host if mesh is None else map_tree(
+            lambda x: _local_block(x, mesh, places), host)
         if target.type != "cuda":
             node.state["ready"] = None
-            return torch.from_numpy(src.copy()).to(target)
-        lane = self.lanes.lane(node.device)
-        with ScopedDeviceContext(node.device, lane.copy_stream):
-            dtype = torch.from_numpy(np.empty(0, src.dtype)).dtype
-            pinned = torch.empty(src.shape, dtype=dtype, pin_memory=True)
-            np.copyto(pinned.numpy(), src)
-            buf = pinned.to(target, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(lane.copy_stream)
-        node.state["ready"] = ready
-        return buf
+            bufs = map_tree(lambda x: _host_tensor(x).clone().to(target),
+                            leaves)
+        else:
+            lane = self.lanes.lane(node.device)
+            with ScopedDeviceContext(node.device, lane.copy_stream):
+                bufs = map_tree(lambda x: _pinned(x).to(
+                    target, non_blocking=True), leaves)
+                ready = torch.cuda.Event()
+                ready.record(lane.copy_stream)
+            node.state["ready"] = ready
+        if mesh is None:
+            return bufs
+        from torch.distributed.tensor import DTensor
+        return map_tree(lambda pair: DTensor.from_local(
+            pair[1], mesh, places, run_check=False,
+            shape=pair[0].shape, stride=_contiguous_stride(pair[0].shape)),
+            _zip_tree(host, bufs))
 
-    def _to_host(self, node: Node, buf: Any) -> np.ndarray:
+    def _to_host(self, node: Node, buf: Any) -> Any:
         """D2H of ``node``'s device value ``buf`` after its producer's
         event (a pull's copy or the kernel that last wrote it): on a CUDA
         bin the bin's copy stream waits on that event and the blocking
-        copy runs there.  Non-tensor values are converted in place."""
+        copy runs there.  Non-tensor values are converted in place; a
+        tree leaf by leaf; a DTensor is gathered whole first; a bf16 copy
+        stays a CPU tensor (numpy has no bf16)."""
+        if isinstance(buf, dict):
+            return map_tree(lambda t: self._to_host(node, t), buf)
         if not isinstance(buf, torch.Tensor):
             return np.asarray(buf)
+        if is_dtensor(buf):
+            buf = buf.full_tensor()
         if buf.device.type != "cuda":
-            return buf.numpy(force=True).copy()
+            return _numpy_or_tensor(buf.detach().clone())
         lane = self.lanes.lane(node.device)
         with ScopedDeviceContext(node.device, lane.copy_stream):
             ready = node.state.get("ready")
             if ready is not None:
                 lane.copy_stream.wait_event(ready)
-            return buf.cpu().numpy()
+            return _numpy_or_tensor(buf.cpu())
 
     def _scope(self, device: Any, task_type: TaskType) -> ScopedDeviceContext:
         """The device scope a task of ``task_type`` runs in on ``device``:
@@ -1258,7 +1365,7 @@ class Executor:
             if buf is not None and not isinstance(buf, np.ndarray):
                 host = self._to_host(victim, buf)
                 victim.state["device_data"] = host
-                nbytes = host.nbytes
+                nbytes = span_nbytes(host)
             victim.state["spilled"] = True
             self._spills.inc()
             self._spilled_bytes.inc(nbytes)
@@ -1287,7 +1394,7 @@ class Executor:
             del node.state["spilled"]
         buf = self._device_put(node, host)
         arena = self.arenas.get(id(node.device))
-        nbytes = int(getattr(host, "nbytes", 0))
+        nbytes = span_nbytes(host)
         if arena is not None and buf is not host:
             node.state["arena_off"] = self._arena_allocate(
                 node.device, arena, node, max(nbytes, 1))
@@ -1334,11 +1441,16 @@ class Executor:
         producer kernels (the paper's ``cudaStreamWaitEvent``), rebind
         declared writes."""
         fn = node.state["fn"]
-        args = [self._convert(a) for a in node.state["args"]]
+        handles = node.state["args"]
+        args = [self._convert(a) for a in handles]
         lane = self.lanes.lane(node.device)
         with self._scope(node.device, TaskType.KERNEL):
             if lane.compute_stream is not None:
                 self._await_inputs(node, lane.compute_stream)
+            # a value another kernel made moves onto this bin's kind:
+            # onto a live slice as a replicated DTensor, off one whole
+            args = [_onto_bin(v, node.device) if isinstance(h, KernelTask)
+                    else v for h, v in zip(handles, args)]
             result = fn(*args)
             ready = lane.record(result)
         node.state["result"] = result

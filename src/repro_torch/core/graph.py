@@ -207,21 +207,89 @@ class KernelTask(Task):
                 f"kernel '{self._node.name}' has not executed yet"
             ) from None
 
+    def host_result(self):
+        """:meth:`result` as host numpy, read once the device work that
+        made it has finished (the ready event its bin recorded): a
+        tensor is copied to the host (bf16 widened to f32, which numpy
+        lacks), a DTensor gathered whole first; any other value goes
+        through ``np.asarray``."""
+        value = self.result()
+        ready = self._node.state.get("ready")
+        if ready is not None:
+            ready.synchronize()
+        return _to_numpy(value)
 
-def _span_view(source, size=None) -> np.ndarray:
+
+def _to_numpy(value) -> np.ndarray:
+    import torch
+    if not isinstance(value, torch.Tensor):
+        return np.asarray(value)
+    if hasattr(value, "full_tensor"):            # a DTensor
+        value = value.full_tensor()
+    value = value.detach()
+    if value.dtype == torch.bfloat16:
+        value = value.float()
+    return value.cpu().numpy()
+
+
+def map_tree(fn: Callable[[Any], Any], tree):
+    """``fn`` applied to every leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list tree, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _leaf_view(leaf):
+    """One leaf of a tree source: a CPU tensor stays a tensor (bf16 has
+    no numpy dtype), anything else becomes an array view."""
+    import torch
+    if isinstance(leaf, torch.Tensor):
+        if leaf.device.type != "cpu":
+            raise ValueError(f"a pull's source must be on the host; a leaf "
+                             f"is on {leaf.device}")
+        return leaf.detach()
+    return np.asarray(leaf)
+
+
+def _span_view(source, size=None):
     """Materialize a host source into a contiguous array view.
 
     The analogue of the paper's ``std::span`` construction: accepts a
     list, np.ndarray, CPU tensor, or a zero-arg callable returning one
     (fully late-bound state).  Mutations by preceding host tasks are seen
-    because the *reference* is captured, not a copy.
+    because the *reference* is captured, not a copy.  A dict source is
+    a tree (the reference's ``device_put`` takes a pytree: a stage's
+    weights, a block's dict of leaves with lists nested in it): the same
+    tree of leaf views (:func:`_leaf_view`); ``size`` does not apply.
     """
     if callable(source):
         source = source()
+    if isinstance(source, dict):
+        if size is not None:
+            raise ValueError("a pull of a tree takes no size")
+        return map_tree(_leaf_view, source)
     arr = np.asarray(source)
     if size is not None:
         arr = arr.reshape(-1)[:size]
     return arr
+
+
+def span_nbytes(span) -> int:
+    """Bytes of a :func:`_span_view` result: an array's, or a tree's
+    leaves summed."""
+    return sum(int(x.nbytes) if isinstance(x, np.ndarray)
+               else x.numel() * x.element_size() for x in tree_leaves(span))
 
 
 class Heteroflow:

@@ -20,7 +20,7 @@ from typing import Any, Callable, Hashable, Mapping, Sequence
 
 import numpy as np
 
-from .graph import Heteroflow, Node, TaskType
+from .graph import Heteroflow, Node, TaskType, _span_view, span_nbytes
 
 __all__ = ["UnionFind", "estimate_node_cost", "place"]
 
@@ -70,6 +70,8 @@ def _nbytes(source, size=None) -> int:
     try:
         if callable(source):
             return 0  # late-bound; unknown until runtime
+        if isinstance(source, dict):
+            return span_nbytes(_span_view(source))   # a tree's leaves
         arr = np.asarray(source)
         n = arr.size if size is None else min(arr.size, size)
         return int(n * arr.dtype.itemsize)

@@ -18,11 +18,16 @@ call returns, so a lane records no events and is always drained.
 
 ``ScopedDeviceContext`` mirrors the paper's RAII ``cudaSetDevice`` scope
 with ``torch.cuda.device`` + ``torch.cuda.stream`` — both thread-local,
-like the executor's worker threads.
+like the executor's worker threads.  A live mesh slice
+(``MeshBin.from_mesh``) runs on its member device's lanes, and its scope
+also enters the slice (the reference enters its ``Mesh``): DTensor
+implicit replication, so the plain tensors a kernel makes (positions,
+a hand-written kernel's output) act as replicated over the slice.
 """
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from collections import deque
@@ -32,7 +37,8 @@ import torch
 
 __all__ = ["DispatchLane", "ScopedDeviceContext", "LaneRegistry",
            "device_key", "bin_labels", "dedup_labels", "execution_target",
-           "torch_device", "lane_kind", "COPY_LANE", "COMPUTE_LANE",
+           "torch_device", "live_mesh", "is_dtensor", "lane_kind",
+           "COPY_LANE", "COMPUTE_LANE",
            "HOST_LANE", "DEFAULT_LANE_DEPTH"]
 
 #: Lane classes a device bin multiplexes, mirroring the paper's per-device
@@ -106,11 +112,61 @@ def execution_target(b: Any) -> Any:
 
 def torch_device(b: Any) -> torch.device | None:
     """The ``torch.device`` bin ``b`` runs on, or ``None`` for bins with
-    none (host bins, simulation labels, synthetic mesh slices)."""
+    none (host bins, simulation labels, synthetic mesh slices).  A live
+    mesh slice runs on this rank's device of it."""
     b = execution_target(b)
-    if getattr(b, "kind", None) == "device":
+    if getattr(b, "kind", None) in ("device", "mesh"):
         b = getattr(b, "device", b)
     return b if isinstance(b, torch.device) else None
+
+
+def live_mesh(b: Any) -> Any:
+    """The ``DeviceMesh`` of a live mesh-slice bin (stage slots resolved
+    to their member), or ``None``."""
+    b = execution_target(b)
+    return getattr(b, "mesh", None) if getattr(b, "kind", None) == "mesh" \
+        else None
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a ``DTensor`` — without importing
+    ``torch.distributed.tensor`` (a second of import time) when nothing
+    has: no DTensor exists before it is imported (a module another
+    thread is still importing may not define the class yet)."""
+    cls = getattr(sys.modules.get("torch.distributed.tensor"), "DTensor",
+                  None)
+    return cls is not None and isinstance(x, cls)
+
+
+class _MeshScope:
+    """DTensor implicit replication while any live-mesh task runs.  The
+    switch is process-wide in torch (one flag read by DTensor's
+    dispatcher), so the scopes of concurrent worker threads are counted
+    and the flag stays on until the last one exits.  It changes nothing
+    for a plain-tensor op: only an op that mixes a DTensor with a plain
+    tensor reads it."""
+
+    _lock = threading.Lock()
+    _depth = 0
+    _ctx: Any = None
+
+    def __enter__(self):
+        with _MeshScope._lock:
+            if _MeshScope._depth == 0:
+                from torch.distributed.tensor.experimental import \
+                    implicit_replication
+                _MeshScope._ctx = implicit_replication()
+                _MeshScope._ctx.__enter__()
+            _MeshScope._depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        with _MeshScope._lock:
+            _MeshScope._depth -= 1
+            if _MeshScope._depth == 0:
+                _MeshScope._ctx.__exit__(None, None, None)
+                _MeshScope._ctx = None
+        return False
 
 
 def _is_cuda(device: torch.device | None) -> bool:
@@ -276,10 +332,12 @@ class ScopedDeviceContext(contextlib.AbstractContextManager):
 
     Accepts raw ``torch.device``s and execution bins
     (``repro_torch.sched.bins``): a device bin unwraps to its
-    ``torch.device``, a stage slot to its member, and a host bin or a
-    synthetic mesh slice deliberately runs scope-free.  On a CUDA device
-    the scope makes the device current and, when ``stream`` is given,
-    makes that stream current (the bin's copy or compute stream).
+    ``torch.device``, a stage slot to its member, a live mesh slice to
+    this rank's device of it (and enters the slice: :class:`_MeshScope`),
+    and a host bin or a synthetic mesh slice deliberately runs
+    scope-free.  On a CUDA device the scope makes the device current and,
+    when ``stream`` is given, makes that stream current (the bin's copy
+    or compute stream).
 
     Re-entrant per thread: entering a scope for the same resolved target
     and stream as the innermost active scope is a no-op (the outer scope
@@ -289,6 +347,7 @@ class ScopedDeviceContext(contextlib.AbstractContextManager):
 
     def __init__(self, device: Any, stream: Any = None):
         self.device = torch_device(device)
+        self.mesh = live_mesh(device)
         self.stream = stream
         self._ctx: list = []
 
@@ -296,13 +355,16 @@ class ScopedDeviceContext(contextlib.AbstractContextManager):
         stack = getattr(_scope_stack, "keys", None)
         if stack is None:
             stack = _scope_stack.keys = []
-        key = (self.device, id(self.stream))
+        key = (self.device, id(self.stream), id(self.mesh))
         if stack and stack[-1] == key:
             pass                             # same target: re-entry no-op
-        elif _is_cuda(self.device):
-            self._ctx = [torch.cuda.device(self.device)]
-            if self.stream is not None:
-                self._ctx.append(torch.cuda.stream(self.stream))
+        else:
+            if _is_cuda(self.device):
+                self._ctx = [torch.cuda.device(self.device)]
+                if self.stream is not None:
+                    self._ctx.append(torch.cuda.stream(self.stream))
+            if self.mesh is not None:
+                self._ctx.append(_MeshScope())
             for ctx in self._ctx:
                 ctx.__enter__()
         stack.append(key)

@@ -12,6 +12,7 @@ import math
 import torch
 
 from .._build import function
+from .._dtensor import local_operands
 
 __all__ = ["decode_attention", "decode_attention_plain"]
 
@@ -56,6 +57,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``decode_attention.launches``; raises on what the kernel does not
     take.  On a CPU tensor: :func:`decode_attention_plain`.
     """
+    q, k, v, valid_len = local_operands("decode_attention", q, k, v,
+                                        valid_len)
     B, H, D = q.shape
     _, S, K, Dv = v.shape
     if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D

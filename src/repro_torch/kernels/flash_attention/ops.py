@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .._build import function
+from .._dtensor import local_operands
 
 __all__ = ["BwdPass", "BwdShape", "FlashAttention", "bwd_launch_shape",
            "flash_attention", "flash_attention_bwd",
@@ -195,6 +196,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference differentiates only that path (its ``custom_vjp``); at an
     offset under autograd the call raises.
     """
+    q, k, v = local_operands("flash_attention", q, k, v)
     scale = _check(q, k, v, window, scale)
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
@@ -291,6 +293,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     the kernel does not take.  On a CPU tensor:
     :func:`flash_attention_bwd_plain`.
     """
+    q, k, v, out, dout, lse = local_operands("flash_attention_bwd", q, k, v,
+                                             out, dout, lse)
     scale = _check(q, k, v, window, scale)
     B, Sq, H, D = q.shape
     _, Sk, K, Dv = v.shape

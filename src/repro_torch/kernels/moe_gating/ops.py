@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from .._build import function
+from .._dtensor import local_operands
 
 __all__ = ["gating_launch_shape", "max_cluster_blocks", "moe_gating",
            "moe_gating_plain"]
@@ -78,6 +79,7 @@ def moe_gating(logits: torch.Tensor, *, top_k: int, capacity: int):
     counts the launch in ``moe_gating.launches``; raises on what the
     kernel does not take.  On a CPU tensor: :func:`moe_gating_plain`.
     """
+    (logits,) = local_operands("moe_gating", logits)
     if logits.dim() != 2:
         raise ValueError(f"moe_gating: logits {tuple(logits.shape)} are not "
                          f"(tokens, experts)")

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from .._build import function
+from .._dtensor import local_operands
 
 __all__ = ["RGLRUScan", "ScanShape", "rglru_scan", "rglru_scan_bwd",
            "rglru_scan_bwd_plain", "rglru_scan_plain", "scan_launch_shape"]
@@ -125,6 +126,7 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
     ``rglru_scan.launches``; raises on what the kernel does not take.  On
     a CPU tensor: :func:`rglru_scan_plain`.
     """
+    x, a, h0 = local_operands("rglru_scan", x, a, h0)
     if torch.is_grad_enabled() and (
             x.requires_grad or a.requires_grad or h0.requires_grad):
         return RGLRUScan.apply(x, a, h0)
@@ -179,6 +181,7 @@ def rglru_scan_bwd(dy: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
     stream and counts the launch in ``rglru_scan_bwd.launches``; raises on
     what the kernel does not take.  On a CPU tensor:
     :func:`rglru_scan_bwd_plain`."""
+    dy, a, h, h0 = local_operands("rglru_scan_bwd", dy, a, h, h0)
     B, S, dr = dy.shape
     if a.shape != dy.shape or h.shape != dy.shape \
             or tuple(h0.shape) != (B, dr):

@@ -9,7 +9,11 @@ pull(tokens, labels) → kernel(train step) → host(metrics), iterated by
 an :class:`Executor` over the device with ``run_until``; checkpoints are
 written through :func:`checkpoint.async_save`.  Weights are random, drawn
 from a seeded ``torch.Generator``; batches come from ``SyntheticSource``.
-WSD for minicpm-2b, cosine otherwise.  No mesh: one device.
+WSD for minicpm-2b, cosine otherwise.  As the reference's launcher,
+:func:`main` runs under the sharding rules over the 1×1 smoke mesh on the
+device (a one-rank process group: NCCL on the card, gloo on the CPU);
+on one rank every rule is the identity, so the steps are those of
+:func:`train` alone.
 """
 from __future__ import annotations
 
@@ -21,9 +25,12 @@ import torch
 from ..configs import get_config, list_archs, reduced as reduce_cfg
 from ..core import Executor, Heteroflow
 from ..data import Pipeline, PipelineConfig, SyntheticSource
+from ..distributed import use_sharding_rules
+from ..distributed.sharding import axis_sizes
 from ..models.transformer import REMAT_POLICIES
 from ..training import (AdamWConfig, checkpoint, cosine_schedule,
                         init_train_state, make_train_step, wsd_schedule)
+from .mesh import make_smoke_mesh
 
 __all__ = ["main", "train"]
 
@@ -119,9 +126,12 @@ def main(argv=None) -> int:
     remat = args.remat or ("none" if args.reduced else "full")
     device = torch.device(args.device)
     print(f"device={device} arch={cfg.arch_id} remat={remat}", flush=True)
-    out = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
-                device=device, remat=remat, ckpt_dir=args.ckpt_dir,
-                ckpt_every=args.ckpt_every, resume=args.resume)
+    mesh = make_smoke_mesh(device)
+    print(f"devices={mesh.size()} mesh={axis_sizes(mesh)}", flush=True)
+    with use_sharding_rules(mesh=mesh):
+        out = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                    device=device, remat=remat, ckpt_dir=args.ckpt_dir,
+                    ckpt_every=args.ckpt_every, resume=args.resume)
     losses, dt = out["losses"], out["seconds"]
     print(f"{args.steps} steps in {dt:.1f}s "
           f"({args.steps * args.batch * args.seq / dt:,.0f} tok/s); "

@@ -4,12 +4,14 @@ stub frontends, and the weight conversion from the JAX reference."""
 from . import convert, frontends, layers, moe, recurrent, transformer, xlstm
 from .convert import params_from_numpy, train_state_from_numpy
 from .transformer import (
+    cache_specs,
     cast_params,
     decode_step,
     forward,
     init_cache,
     init_params,
     loss_fn,
+    param_specs,
     prefill,
     reset_cache,
 )
@@ -17,7 +19,7 @@ from .transformer import (
 __all__ = [
     "convert", "frontends", "layers", "moe", "recurrent", "transformer",
     "xlstm",
-    "params_from_numpy", "train_state_from_numpy", "cast_params",
-    "decode_step", "forward", "init_cache", "init_params", "loss_fn",
-    "prefill", "reset_cache",
+    "params_from_numpy", "train_state_from_numpy", "cache_specs",
+    "cast_params", "decode_step", "forward", "init_cache", "init_params",
+    "loss_fn", "param_specs", "prefill", "reset_cache",
 ]

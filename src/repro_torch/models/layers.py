@@ -6,8 +6,14 @@ Attention calls the hand-written kernels (``repro_torch.kernels``):
 flash attention for a prompt, decode attention for one token against a
 cache.  On a CPU tensor those wrappers compute their plain PyTorch
 versions.  Weights are ``(in, out)`` and applied as ``x @ W``, as in the
-JAX reference (``repro.models.layers``); the reference's sharding hints
-have no meaning on one device and are dropped.
+JAX reference (``repro.models.layers``).  The reference's sharding hints
+stand at its sites (``distributed.context.constrain``: the identity on
+a plain tensor and outside a rule context), and a decode step against a
+cache sharded over a model axis of more than one rank goes through
+``distributed.flash_decode`` under the reference's condition
+(``decode_shard_info``); on one rank neither changes what runs.  The
+reference's ``flash_blocks`` hints constrain its chunked attention's
+block reshapes, which the kernels here do internally.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import (constrain, decode_shard_info,
+                                   decode_tp_active)
 from ..kernels import decode_attention, flash_attention
 
 Params = dict[str, Any]
@@ -149,8 +157,8 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
     new k/v rows are written into the cache tensors IN PLACE (no copy of
     the cache per token), and ``length`` is a host int counting every
     token seen.  A decode step (S = 1 with a cache) takes ``step``, its
-    cache row and ``valid_len`` as device tensors made once per step
-    (``transformer._decode_steps``), so it reads no host scalar.  A
+    cache row, ``valid_len`` and position as device tensors made once per
+    step (``transformer._decode_steps``), so it reads no host scalar.  A
     prompt writes rows [length, length + S) and attends to the cache's
     rows [0, length + S) in place at q offset ``length`` (at length > 0,
     chunked prefill: the reference's ``dynamic_update_slice`` and
@@ -165,9 +173,17 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     cdt = getattr(torch, cfg.compute_dtype)
-    q = (x @ p["wq"].to(cdt)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(cdt)).reshape(B, S, K, hd)
-    v = (x @ p["wv"].to(cdt)).reshape(B, S, K, hd)
+    dtp = decode_tp_active() and S == 1
+    if dtp:
+        # weight-stationary 2D-TP decode: d contracted over the data
+        # axis, q/k/v brought to batch-sharded full heads
+        x = constrain(x, "dtp_features")
+        kind = "batch_only"
+    else:
+        kind = "heads"                 # projections emit head-sharded
+    q = constrain((x @ p["wq"].to(cdt)).reshape(B, S, H, hd), kind)
+    k = constrain((x @ p["wk"].to(cdt)).reshape(B, S, K, hd), kind)
+    v = constrain((x @ p["wv"].to(cdt)).reshape(B, S, K, hd), kind)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
     window = cfg.rec.local_window if local else None
@@ -181,12 +197,23 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
             raise NotImplementedError(
                 "a local-attention cache longer than its window is not "
                 "ported; init_cache builds W = min(max_len, local_window)")
-        if S == 1:
+        info = decode_shard_info(B, k_cache.shape[1]) \
+            if S == 1 and not local else None
+        if info is not None:
+            # flash-decode over the sequence-sharded cache: a local
+            # one-row update at the position and a partial-softmax
+            # combine (KB-scale collectives)
+            from ..distributed.flash_decode import flash_decode_update
+            mesh, baxes, maxis = info
+            out, _, _ = flash_decode_update(
+                q, k, v, k_cache, v_cache, step[2], mesh=mesh, baxes=baxes,
+                maxis=maxis)
+        elif S == 1:
             # decode: write row pos % W, attend to the valid rows, read
             # from the cache as the reference reads it (in the compute
             # dtype); a ring holds exactly the past window, so validity
             # is the whole mask
-            row, valid_len = step
+            row, valid_len = step[:2]
             k_cache.index_copy_(1, row, k.to(k_cache.dtype))
             v_cache.index_copy_(1, row, v.to(v_cache.dtype))
             out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
@@ -209,7 +236,11 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
             out = attention(q, k_cache[:, :end].to(cdt),
                             v_cache[:, :end].to(cdt), q_offset=length)
         new_cache = {"k": k_cache, "v": v_cache, "length": length + S}
+    # H·hd contracts over the model axis: wo stays put
+    out = constrain(out.reshape(B, S, H, hd), "heads")
     out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
+    if dtp:
+        out = constrain(out, "dtp_features")
     return out, new_cache
 
 
@@ -318,7 +349,7 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
         length = cache["length"]
         c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
         if S == 1:
-            row, valid_len = step
+            row, valid_len = step[:2]
             c_cache.index_copy_(1, row, c_kv.to(c_cache.dtype))
             kr_cache.index_copy_(1, row, k_rope.to(kr_cache.dtype))
             c_all, kr_all = c_cache.to(cdt), kr_cache.to(cdt)
@@ -331,14 +362,18 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
             q_offset = length
         new_cache = {"c_kv": c_cache, "k_rope": kr_cache, "length": length + S}
     L = c_all.shape[1]
-    k_nope = (c_all @ p["w_uk"].to(cdt)).reshape(B, L, H, m.qk_nope_dim)
-    v = (c_all @ p["w_uv"].to(cdt)).reshape(B, L, H, m.v_head_dim)
+    k_nope = constrain((c_all @ p["w_uk"].to(cdt)).reshape(
+        B, L, H, m.qk_nope_dim), "heads")
+    v = constrain((c_all @ p["w_uv"].to(cdt)).reshape(
+        B, L, H, m.v_head_dim), "heads")
     k = torch.cat([k_nope, kr_all[:, :, None, :].expand(B, L, H, -1)],
                   dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = constrain(k, "heads")
+    q = constrain(torch.cat([q_nope, q_rope], dim=-1), "heads")
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     out = attention(q, k, v, causal=True, q_offset=q_offset, scale=scale,
                     valid_len=valid_len)
+    out = constrain(out, "heads")
     out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"].to(cdt)
     return out, new_cache
 
@@ -372,6 +407,13 @@ def init_ffn(cfg, gen: torch.Generator, device, count: int = 1,
 
 def ffn_forward(cfg, p: Params, x):
     cdt = getattr(torch, cfg.compute_dtype)
-    g = F.silu(x @ p["w_gate"].to(cdt))
-    u = x @ p["w_up"].to(cdt)
+    if decode_tp_active() and x.shape[-2] == 1:
+        # weight-stationary 2D-TP decode: d over the data axis, f over
+        # the model axis, so the 2D-sharded weights never move
+        x = constrain(x, "dtp_features")
+        g = F.silu(constrain(x @ p["w_gate"].to(cdt), "dtp_hidden"))
+        u = constrain(x @ p["w_up"].to(cdt), "dtp_hidden")
+        return constrain((g * u) @ p["w_down"].to(cdt), "dtp_features")
+    g = F.silu(constrain(x @ p["w_gate"].to(cdt), "ffn_hidden"))
+    u = constrain(x @ p["w_up"].to(cdt), "ffn_hidden")
     return (g * u) @ p["w_down"].to(cdt)

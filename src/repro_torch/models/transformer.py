@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import LayerGroup, ModelConfig
+from ..distributed.context import constrain, decode_tp_active
 from . import layers as L
 from . import moe as M
 from . import recurrent as R
@@ -113,9 +114,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None = None,
     default: one seeded with 0).  Same layout as the reference (``norm2``
     and ``ffn`` only where the sub-layer has an FFN); the numbers differ
     from ``jax.random``'s — carry the reference's over with
-    :func:`repro_torch.models.convert.params_from_numpy`."""
+    :func:`repro_torch.models.convert.params_from_numpy`.  On the
+    ``meta`` device nothing is drawn or allocated: shapes and dtypes
+    only (:func:`param_specs`)."""
     device = _device(device)
-    if gen is None:
+    if gen is None and device.type != "meta":
         gen = torch.Generator(device=device).manual_seed(0)
     dt = getattr(torch, cfg.param_dtype)
     d = cfg.d_model
@@ -142,6 +145,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator | None = None,
             stacked[f"sub{i}"] = sub
         params["groups"].append(stacked)
     return params
+
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """Shape/dtype skeleton of the params: meta tensors, nothing drawn or
+    allocated (the reference's ``jax.eval_shape`` of its init; the
+    dry-run's and the sharding rules' input)."""
+    return init_params(cfg, device="meta")
 
 
 def cast_params(cfg: ModelConfig, params: Params) -> Params:
@@ -198,6 +208,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                           device, g.count)
              for i, mixer in enumerate(g.pattern)}
             for g in cfg.groups]
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16) -> list:
+    """Shape/dtype skeleton of :func:`init_cache`: meta tensors, nothing
+    allocated.  Each sub-cache's ``length`` — a host int in a live cache
+    — stands as the reference's stacked counter, an int32 meta tensor of
+    shape (count,), so the skeleton (and the specs and bytes of it) is
+    the reference's ``cache_specs`` leaf for leaf."""
+    caches = init_cache(cfg, batch, max_len, dtype, device="meta")
+    for g, gc in zip(cfg.groups, caches):
+        for sub in gc.values():
+            if "length" in sub:
+                sub["length"] = torch.empty((g.count,), dtype=torch.int32,
+                                            device="meta")
+    return caches
 
 
 def reset_cache(cfg: ModelConfig, caches: list) -> list:
@@ -258,16 +284,18 @@ def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
         step = None if cache is None else steps.get(cache["k"].shape[1])
         h, _ = L.attn_forward(cfg, p["mixer"], h, positions, cache,
                               local=(mixer == "attn_local"), step=step)
-    x = x + h
+    # branch outputs re-enter the residual layout
+    x = x + _residual(h)
     aux = None
     if ffn == "dense":
-        x = x + L.ffn_forward(cfg, p["ffn"],
-                              L.rms_norm(x, p["norm2"], cfg.norm_eps))
+        h = L.ffn_forward(cfg, p["ffn"],
+                          L.rms_norm(x, p["norm2"], cfg.norm_eps))
+        x = x + _residual(h)
     elif ffn == "moe":
         h, aux = M.moe_forward(cfg, p["ffn"],
                                L.rms_norm(x, p["norm2"], cfg.norm_eps),
                                aux=want_aux)
-        x = x + h
+        x = x + _residual(h)
     return x, aux
 
 
@@ -291,6 +319,7 @@ def _super_block(cfg, g: LayerGroup, lp: Params, x, positions,
     for i, mixer in enumerate(g.pattern):
         x, aux = _block_forward(cfg, mixer, g.ffn_of(i), lp[f"sub{i}"], x,
                                 positions, None, {}, want_aux)
+        x = _residual(x)
         if aux is not None:
             total = aux if total is None else total + aux
     return x, total
@@ -323,6 +352,7 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
             x, aux = _block_forward(cfg, mixer, g.ffn_of(i),
                                     layers[layer][key], x, positions, c,
                                     steps, auxes is not None)
+            x = _residual(x)
             if aux is not None:
                 auxes.append(aux)
     if gcache is None:
@@ -335,12 +365,24 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
     return x, new_cache
 
 
+def _residual(x):
+    """``x`` (B, S, d) in the residual stream's layout: under rules, the
+    batch over (pod, data) and the sequence over the model axis
+    (Megatron-SP); a decode step in 2D-TP keeps it feature-sharded
+    instead.  The identity outside rules and on a plain tensor."""
+    if decode_tp_active() and x.shape[1] == 1:
+        return constrain(x, "dtp_features")
+    return constrain(x, "residual")
+
+
 def _decode_steps(caches, pos, batch: int) -> dict:
     """The decode step's cache row and mask per attention cache size W
     (a k/v or an MLA latent cache), computed on the device from ``pos``
     (the cache position, (1,) int64): row ``pos % W`` (a global cache has
-    W = max_len > pos; a ring writes over its oldest row) and
-    ``valid_len`` = min(pos + 1, W) per sequence, int32."""
+    W = max_len > pos; a ring writes over its oldest row),
+    ``valid_len`` = min(pos + 1, W) per sequence, int32, and ``pos``
+    itself (flash-decode writes at the position into a cache sharded
+    along its rows)."""
     steps = {}
     for gc in caches:
         for sub in gc.values():
@@ -349,7 +391,7 @@ def _decode_steps(caches, pos, batch: int) -> dict:
                 W = rows.shape[2]
                 if W not in steps:
                     valid = torch.clamp(pos + 1, max=W).to(torch.int32)
-                    steps[W] = (pos % W, valid.repeat(batch))
+                    steps[W] = (pos % W, valid.repeat(batch), pos)
     return steps
 
 
@@ -385,6 +427,8 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     if tokens is not None:
         parts.append(params["embed"][tokens].to(cdt))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    # the embedding output enters the residual layout at once
+    x = constrain(x, "residual")
     B, S, _ = x.shape
     steps = {}
     if caches is not None and S == 1:
@@ -417,6 +461,74 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, new_caches, sum(auxes, total)
     return logits, new_caches
+
+
+def pipeline_stages(cfg: ModelConfig, params: Params, n_stages: int) -> list:
+    """The decoder cut into ``n_stages`` pipeline stages of consecutive
+    layers, as ``distributed.pipeline.Stage``s for
+    ``build_pipeline_graph``: stage 0 also embeds the tokens, the last
+    also runs the final norm and the head (logits f32, as
+    :func:`forward`'s).  A stage's params are a tree of views of
+    ``params`` (each group's stacked leaves sliced to its layers); its fn
+    ``(params, x) -> y`` runs them as :func:`forward` does without caches,
+    at positions 0..S-1, so the stages in turn give :func:`forward`'s
+    logits.  A stage's cost is its layer count, plus one for the
+    embedding and one for the head."""
+    import dataclasses
+
+    from ..distributed.pipeline import Stage
+
+    layers = [(gi, i) for gi, g in enumerate(cfg.groups)
+              for i in range(g.count)]
+    if not 1 <= n_stages <= len(layers):
+        raise ValueError(f"{n_stages} stages for {len(layers)} layers")
+    bounds = [len(layers) * s // n_stages for s in range(n_stages + 1)]
+    head = "embed" if cfg.tie_embeddings else "lm_head"
+    stages = []
+    for s in range(n_stages):
+        span = layers[bounds[s]:bounds[s + 1]]
+        first, last = s == 0, s == n_stages - 1
+        groups, trees = [], []
+        for gi in sorted({gi for gi, _ in span}):
+            idx = [i for g2, i in span if g2 == gi]
+            a, b = idx[0], idx[-1] + 1
+            groups.append(dataclasses.replace(cfg.groups[gi], count=b - a))
+            trees.append(_slice_layers(params["groups"][gi], a, b))
+        p: Params = {"groups": trees}
+        if first:
+            p["embed"] = params["embed"]
+        if last:
+            p["final_norm"] = params["final_norm"]
+            p[head] = params[head]
+        stages.append(Stage(fn=functools.partial(_stage_forward, cfg,
+                                                 tuple(groups), first, last),
+                            params=p, cost=float(len(span) + first + last)))
+    return stages
+
+
+def _slice_layers(tree, a: int, b: int):
+    if isinstance(tree, dict):
+        return {k: _slice_layers(v, a, b) for k, v in tree.items()}
+    return tree[a:b]
+
+
+def _stage_forward(cfg: ModelConfig, groups: tuple, first: bool, last: bool,
+                   p: Params, x):
+    """One pipeline stage (:func:`pipeline_stages`): tokens or the
+    residual stream in, the residual stream or logits out."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    if first:
+        x = constrain(p["embed"][x].to(cdt), "residual")
+    B, S = x.shape[0], x.shape[1]
+    pos1d = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions = pos1d.expand(3, B, S) if cfg.m_rope_sections else pos1d
+    for g, gp in zip(groups, p["groups"]):
+        x, _ = _run_group(cfg, g, gp, x, positions, None, {}, None)
+    if not last:
+        return x
+    x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
+    return (x @ head.to(cdt)).float()
 
 
 def _cache_length(caches) -> int:

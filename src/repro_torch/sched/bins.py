@@ -13,9 +13,12 @@ on CUDA workers) and Specx's heterogeneous task placement:
 * :class:`HostBin`   — host-resident execution: pulls keep their span on
   the host, kernels run without a device scope.
 * :class:`MeshBin`   — a named sub-mesh slice (axis-name → size shape),
-  synthetic for now: policies and the simulator cost sharded compute
-  from its ``device_count``; executing on one waits for the distributed
-  slice of the port.
+  enumerated from a ``torch.distributed.device_mesh.DeviceMesh`` via
+  :meth:`MeshBin.from_mesh` or built synthetically for simulator-only
+  studies.  Carries the placements pulls need (``put_target`` → the
+  slice's mesh and DTensor placements, replicating over the slice by
+  default) and a ``device_count`` the policies and simulator use to
+  cost sharded compute.
 * :class:`StageBin`  — a **pipeline-stage slot**: wraps any member bin
   (device / host / mesh slice) and adds the inter-stage *link* the
   Pipeflow model costs explicitly (bandwidth + latency of the
@@ -167,28 +170,44 @@ class HostBin(ExecutionBin):
 class MeshBin(ExecutionBin):
     """A named sub-mesh slice: ``axis_shape`` maps axis names to sizes.
 
-    The bin is *synthetic*: usable by policies and the simulator only
-    (handing one to the executor raises at invoke time rather than
-    silently running unsharded).  Executable slices over several cards
-    arrive with the distributed slice of the port.  Capabilities are
-    ``{"mesh"}`` plus extra tags via ``capabilities=`` (e.g.
-    ``("cuda",)`` to satisfy platform-qualified kernels in offline
-    studies).
+    ``mesh`` is the live ``DeviceMesh`` over the slice's ranks when the
+    bin is executable; ``None`` marks a *synthetic* bin usable by
+    policies and the simulator only (handing one to the executor raises
+    at invoke time rather than silently running unsharded).  ``spec`` is
+    the default partition spec (``repro_torch.distributed.sharding.P``)
+    a pull without an explicit ``sharding=`` pin is transferred under
+    (default: replicate over the slice): a pull lands as a ``DTensor`` of
+    those placements, and the bin's kernels run on this rank's device of
+    the slice (``device``) inside the slice's scope
+    (``core.streams.ScopedDeviceContext``).  Capabilities are ``{"mesh"}``
+    plus the mesh's device type when built over a live mesh; synthetic
+    bins take extra tags via ``capabilities=`` (e.g. ``("cuda",)`` to
+    satisfy platform-qualified kernels in offline studies).
     """
 
     kind = "mesh"
 
     def __init__(self, name: str, axis_shape: Mapping[str, int], *,
+                 mesh: Any = None, spec: Any = None,
                  capabilities: Sequence[str] = (),
                  memory_bytes: int | None = None):
         if not axis_shape:
             raise ValueError("MeshBin needs a non-empty axis_shape")
         self.label = name
         self.axis_shape = dict(axis_shape)
+        self.mesh = mesh
+        self.spec = spec
+        self.device = None
         self.device_count = 1
         for n in self.axis_shape.values():
             self.device_count *= int(n)
-        self.capabilities = frozenset({"mesh", *capabilities})
+        caps = {"mesh", *capabilities}
+        if mesh is not None:
+            caps.add(mesh.device_type)
+            self.device = (torch.device("cuda", torch.cuda.current_device())
+                           if mesh.device_type == "cuda"
+                           else torch.device(mesh.device_type))
+        self.capabilities = frozenset(caps)
         # the budget is the SLICE aggregate (sum over member devices) —
         # the resident set a replicated pull occupies on every member is
         # the caller's to model via the footprint it charges
@@ -198,14 +217,60 @@ class MeshBin(ExecutionBin):
         return (type(self), self.kind, self.label,
                 tuple(sorted(self.axis_shape.items())))
 
+    @classmethod
+    def from_mesh(cls, mesh: Any, tile: Mapping[str, int] | None = None, *,
+                  spec: Any = None, prefix: str = "mesh") -> list["MeshBin"]:
+        """Enumerate non-overlapping sub-mesh slices of ``mesh`` (a
+        ``DeviceMesh`` with named dims).
+
+        ``tile`` maps axis names to slice sizes (axes omitted keep their
+        full extent); every tile size must divide its axis.  Returns one
+        executable :class:`MeshBin` per slice, in row-major slice order
+        with run-stable labels ``{prefix}:{shape}[{i}]``.  A slice that is
+        the whole mesh is ``mesh`` itself; a smaller one is a new
+        ``DeviceMesh`` over its ranks (every rank must enumerate the same
+        tiles, as process groups are made collectively).
+        """
+        from torch.distributed.device_mesh import DeviceMesh
+
+        names = list(mesh.mesh_dim_names)
+        sizes = dict(zip(names, tuple(mesh.mesh.shape)))
+        tile = dict(tile or {})
+        for ax, t in tile.items():
+            if ax not in sizes:
+                raise ValueError(f"mesh has no axis {ax!r} "
+                                 f"(axes: {names})")
+            if sizes[ax] % t:
+                raise ValueError(
+                    f"tile size {t} does not divide axis {ax!r} "
+                    f"of size {sizes[ax]}")
+        shape = {ax: tile.get(ax, sizes[ax]) for ax in names}
+        import itertools as _it
+        steps = [range(0, sizes[ax], shape[ax]) for ax in names]
+        shape_str = "x".join(str(shape[ax]) for ax in names)
+        out = []
+        for i, origin in enumerate(_it.product(*steps)):
+            sl = tuple(slice(o, o + shape[ax])
+                       for o, ax in zip(origin, names))
+            sub = mesh if shape == sizes else DeviceMesh(
+                mesh.device_type, mesh.mesh[sl], mesh_dim_names=tuple(names))
+            out.append(cls(f"{prefix}:{shape_str}[{i}]", shape,
+                           mesh=sub, spec=spec))
+        return out
+
     def put_target(self) -> Any:
-        # the capability gate makes placement LOOK enforced; running a
-        # sharded kernel unsharded on one device instead would be
-        # silently wrong — fail loudly at invoke time
-        raise RuntimeError(
-            f"MeshBin {self.label!r} is synthetic (no live mesh) — usable "
-            f"by policies and the simulator only until the distributed "
-            f"slice of the port")
+        """``(mesh, placements)``: the slice and the DTensor placements of
+        its ``spec`` (all ``Replicate`` by default)."""
+        if self.mesh is None:
+            # the capability gate makes placement LOOK enforced; running
+            # a sharded kernel unsharded on one device instead would be
+            # silently wrong — fail loudly at invoke time
+            raise RuntimeError(
+                f"MeshBin {self.label!r} is synthetic (no live mesh) — "
+                f"usable by policies and the simulator only; enumerate "
+                f"executable slices with MeshBin.from_mesh")
+        from repro_torch.distributed.sharding import P, placements
+        return self.mesh, placements(self.mesh, self.spec or P())
 
     def describe(self) -> dict[str, Any]:
         return {**super().describe(), "axis_shape": dict(self.axis_shape)}

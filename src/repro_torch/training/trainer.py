@@ -20,7 +20,8 @@ from ..configs.base import ModelConfig
 from ..models import transformer
 from . import optimizer as opt_lib
 
-__all__ = ["init_train_state", "make_train_step"]
+__all__ = ["init_train_state", "train_state_specs", "make_train_step"]
+
 
 def init_train_state(cfg: ModelConfig, gen: torch.Generator | None = None,
                      device=None) -> dict:
@@ -28,6 +29,12 @@ def init_train_state(cfg: ModelConfig, gen: torch.Generator | None = None,
     state: ``{"params", "opt": {"m", "v", "step"}}``."""
     params = transformer.init_params(cfg, gen, device)
     return {"params": params, "opt": opt_lib.init_opt_state(params)}
+
+
+def train_state_specs(cfg: ModelConfig) -> dict:
+    """Shape/dtype skeleton of the train state: meta tensors, nothing
+    drawn or allocated (the reference's ``jax.eval_shape``)."""
+    return init_train_state(cfg, device="meta")
 
 
 def _cast(tree, dtype):

@@ -1020,3 +1020,145 @@ def test_remat_policies_give_the_same_grads_on_the_card(cuda, arch):
         for k in g0:
             _close(grads[k], g0[k], torch.float32)
 
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer at world size 1: a one-rank NCCL group and the 1x1
+# smoke mesh on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    mesh = make_smoke_mesh(cuda)
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_mesh_bin_pulls_and_runs_on_the_card(cuda, nccl_mesh):
+    """A tree pulled onto a live 1x1 MeshBin lands on cuda:0 as replicated
+    DTensors; a kernel there launches the flash kernel on their local
+    tensors; a DeviceBin downstream reads the result as a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import Executor, Heteroflow
+    from repro_torch.sched import DeviceBin, MeshBin
+
+    (mb,) = MeshBin.from_mesh(nccl_mesh)
+    assert mb.device == cuda and "cuda" in mb.capabilities
+    rng = np.random.default_rng(0)
+    qkv = {n: rng.standard_normal((1, 64, 4, 64)).astype(np.float32)
+           for n in ("q", "k", "v")}
+    seen = {}
+
+    def attend(t):
+        seen["q"] = t["q"]
+        return flash_attention(t["q"], t["k"], t["v"])
+
+    def read(o):
+        seen["o"] = o
+        return o * 2
+
+    G = Heteroflow()
+    p = G.pull(qkv, name="qkv")
+    k1 = G.kernel(attend, p, requires=("mesh",), name="attend")
+    k1.succeed(p)
+    k2 = G.kernel(read, k1, name="read")
+    k2.succeed(k1)
+    before = flash_attention.launches
+    with Executor(num_workers=2, devices=[mb, DeviceBin(cuda)]) as ex:
+        ex.run(G).result(timeout=120)
+    assert flash_attention.launches == before + 1
+    assert isinstance(seen["q"], DTensor) and seen["q"].device == cuda
+    assert not isinstance(seen["o"], DTensor) and seen["o"].device == cuda
+    want = flash_attention_plain(*(torch.from_numpy(qkv[n])
+                                   for n in ("q", "k", "v")))
+    _close(torch.from_numpy(k2.host_result()) / 2, want, torch.float32)
+
+
+def test_pipeline_over_device_and_mesh_stage_bins(cuda, nccl_mesh):
+    """Reduced phi3 (bf16 compute) in two stages over stage slots of
+    three DeviceBins and one MeshBin: each microbatch's logits are the
+    sequential forward's, and the flash kernel ran for every block."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import Executor
+    from repro_torch.core.graph import map_tree
+    from repro_torch.distributed.pipeline import build_pipeline_graph
+    from repro_torch.models import cast_params, forward, init_params
+    from repro_torch.models.transformer import pipeline_stages
+    from repro_torch.sched import DeviceBin, MeshBin, stage_bins
+
+    cfg = reduced(get_config("phi3-mini-3.8b"))
+    cfg = dataclasses.replace(cfg, groups=(
+        dataclasses.replace(cfg.groups[0], count=4),))
+    params = cast_params(cfg, init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda))
+    stages = pipeline_stages(cfg, params, 2)
+    for st in stages:
+        st.params = map_tree(lambda t: t.cpu(), st.params)
+    (mb,) = MeshBin.from_mesh(nccl_mesh)
+    pool = stage_bins([mb, DeviceBin(cuda), DeviceBin(cuda),
+                       DeviceBin(cuda)])
+    rng = np.random.default_rng(0)
+    mbs = [rng.integers(0, cfg.vocab_size, size=(1, 64)) for _ in range(3)]
+    out = []
+    G = build_pipeline_graph(stages, mbs, collect=out)
+    before = flash_attention.launches
+    with Executor(num_workers=3, devices=pool) as ex:
+        ex.run(G).result(timeout=120)
+    assert flash_attention.launches == before + 4 * len(mbs)
+    assert any(n.device.member is mb for n in G.nodes
+               if n.name.startswith("f["))
+    for got, tokens in zip(out, mbs):
+        want, _ = forward(cfg, params, torch.as_tensor(tokens, device=cuda))
+        _close(torch.from_numpy(got), want.cpu(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_world_size_one_matches_the_decode_kernel(
+        cuda, nccl_mesh, dtype):
+    from repro_torch.distributed.flash_decode import flash_decode_update
+
+    rng = np.random.default_rng(0)
+    B, H, K, D, S, length = 2, 8, 4, 96, 256, 117
+    q = _randn(rng, (B, 1, H, D), dtype, cuda)
+    kn, vn = (_randn(rng, (B, 1, K, D), dtype, cuda) for _ in range(2))
+    kc, vc = (_randn(rng, (B, S, K, D), dtype, cuda) for _ in range(2))
+    kw, vw = kc.clone(), vc.clone()
+    kw[:, length], vw[:, length] = kn[:, 0], vn[:, 0]
+    want = decode_attention(q[:, 0], kw, vw, torch.full(
+        (B,), length + 1, dtype=torch.int32, device=cuda))
+    out, _, _ = flash_decode_update(q, kn, vn, kc, vc,
+                                    torch.tensor([length], device=cuda),
+                                    mesh=nccl_mesh, baxes=("data",),
+                                    maxis="model")
+    _close(out[:, 0], want, dtype)
+    assert torch.equal(kc, kw) and torch.equal(vc, vw)
+
+
+def test_moe_shard_map_at_world_size_one_matches_moe_local(cuda, nccl_mesh):
+    """Reduced deepseek-v2's MoE (bf16): _moe_shard_map on one rank is
+    _moe_local plus the shared experts, bit for bit, through the gating
+    kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import ffn_forward
+
+    cfg = reduced(get_config("deepseek-v2-236b"))
+    p = M.init_moe(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    p = {k: ({n: t[0] for n, t in v.items()} if isinstance(v, dict)
+             else v[0]) for k, v in p.items()}
+    x = _randn(np.random.default_rng(1), (2, 64, cfg.d_model),
+               torch.bfloat16, cuda)
+    before = moe_gating.launches
+    got, _ = M._moe_shard_map(cfg, p, x, torch.bfloat16, nccl_mesh,
+                              ("data",), "model")
+    assert moe_gating.launches == before + 1
+    want, _ = M._moe_local(cfg, p, x, torch.bfloat16)
+    want = want + ffn_forward(cfg, p["shared"], x)
+    assert torch.equal(got, want)

@@ -47,6 +47,7 @@ from repro_torch.training import (AdamWConfig, adamw_update, checkpoint,  # noqa
                                   cosine_schedule, init_opt_state,
                                   init_train_state, make_train_step,
                                   wsd_schedule)
+from repro_torch.training import optimizer as topt  # noqa: E402
 from repro_torch.training.checkpoint import _flatten  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -416,6 +417,57 @@ def test_accumulation_splits_the_patch_embeddings_with_the_batch():
     for k in ("total_loss", "loss", "grad_norm", "tokens"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), **MODEL_TOL,
                                    err_msg=k)
+
+
+def _accum_grads(monkeypatch, jcfg, tcfg, jstate, tstate, batch, accum):
+    """The gradients each package's train step hands AdamW (accumulated
+    over ``accum`` microbatches and averaged) from one state, as two
+    dicts of numpy arrays keyed by leaf path."""
+    jorig, torig = jopt.adamw_update, topt.adamw_update
+    seen = {}
+
+    def jcapture(cfg, grads, params, opt_state):
+        new_params, new_opt, m = jorig(cfg, grads, params, opt_state)
+        return new_params, new_opt, dict(m, grads=grads)
+
+    def tcapture(cfg, grads, params, opt_state):
+        seen["grads"] = [g.clone() for g in grads]
+        return torig(cfg, grads, params, opt_state)
+
+    monkeypatch.setattr(jopt, "adamw_update", jcapture)
+    monkeypatch.setattr(topt, "adamw_update", tcapture)
+    jopt_cfg = jopt.AdamWConfig(schedule=jopt.wsd_schedule(1e-3, 1, 10, 5))
+    topt_cfg = AdamWConfig(schedule=wsd_schedule(1e-3, 1, 10, 5))
+    _, jm = jax.jit(jtrainer.make_train_step(jcfg, jopt_cfg, accum=accum))(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+    names = {id(t): k for k, t in _flatten(tstate["params"]).items()}
+    make_train_step(tcfg, topt_cfg, accum=accum)(tstate, _torch_batch(batch))
+    got = {names[id(t)]: g.numpy() for t, g in
+           zip(topt.leaves(tstate["params"]), seen["grads"])}
+    return got, _flat_np(jm["grads"])
+
+
+def test_accumulation_gradients_match_reference_for_the_vision_stub(
+        monkeypatch):
+    """qwen2-vl at accum 2 on a batch that carries patch embeddings, from
+    one shared state: every leaf of the accumulated gradient against the
+    reference's at GRAD_ATOL of the leaf's largest element — each
+    microbatch takes its own rows of the embeddings.  (After Adam's first
+    step one element of layer 0's wk ends 1.06e-4 from the reference's:
+    its gradient is a sum that cancels to ~eps, ROADMAP.md Queue 3.)"""
+    jcfg, tcfg = _cfgs(QWEN2VL)
+    jstate = jtrainer.init_train_state(jcfg, jax.random.PRNGKey(1))
+    tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate), CPU)
+    batch = _batch(jcfg.vocab_size, seed=0, cfg=jcfg)
+    assert batch["extra_embeds"].shape[:2] == (4, jcfg.n_visual_tokens)
+    got, want = _accum_grads(monkeypatch, jcfg, tcfg, jstate, tstate, batch,
+                             accum=2)
+    assert got.keys() == want.keys()
+    for key in sorted(want):
+        scale = float(np.abs(want[key]).max()) or 1.0
+        np.testing.assert_allclose(got[key], want[key],
+                                   rtol=MODEL_TOL["rtol"],
+                                   atol=GRAD_ATOL * scale, err_msg=repr(key))
 
 
 def test_bf16_compute_trains_the_router():
