@@ -112,6 +112,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``_moe_local`` on deepseek-v2's MoE layer (E 160, top-6, 2 shared,
    bf16) and 512 tokens, moe_gating = 1.
 
+8. dry-run against the card: ``repro_torch.launch.dryrun`` traces
+   phi3-mini-3.8b's decode step (batch 4, a full 1024-row cache, bf16
+   weights) and minicpm-2b's train step (B 4 x S 1024, accum 1) on a 1x1
+   fake mesh, and the same step functions run on the card: the FLOPs
+   equal ``FlopCounterMode``'s count of the real step, the predicted
+   peak is 0.95-1.15 of ``max_memory_allocated`` and the roofline bound
+   at most 1.05 of the median step (decode_attention = 32, flash = 80
+   and flash_bwd = 40 in the real steps); the host time an eager decode
+   kernel call takes through its custom op and through its launch
+   function, in turns; then llama4-maverick x decode_32k traced on the
+   fake 16x16 mesh, its record line printed.
+
+Each kernel's bound in phase 3 comes from its cost formula in the port
+(``*_cost`` beside the wrapper, the custom op's FLOP and byte count).
 Phase 3 also holds the forward's log-sum-exp output and the two
 backward kernels (``flash_attention_bwd`` at the three train shapes in
 bf16, on the tensor cores, and a small f32 one, with SDPA's backward as
@@ -209,8 +223,11 @@ def _check(torch, name, out, ref32, dtype_name) -> float:
     return max_err
 
 
-def _bounds(nbytes: float, flops: float, dt: str) -> tuple[float, str]:
-    """The least time for the work, in ms, and what bounds it."""
+def _bounds(flops: float, nbytes: float, dt: str) -> tuple[float, str]:
+    """The least time for the work, in ms, and what bounds it: ``flops``
+    and ``nbytes`` as a kernel's cost formula gives them (its ops.py
+    ``*_cost``, the custom op's count for ``FlopCounterMode`` and the
+    dry-run)."""
     bounds = {"operations": flops / PEAK_FLOPS[dt] * 1e3,
               "bytes": nbytes / HBM_BYTES_S * 1e3}
     bound_by = max(bounds, key=bounds.get)
@@ -245,6 +262,7 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cost
 
     chosen = {}
     # phi3-mini (D 96), GQA at G 4 (D 128), llama4's prefill (H 40, K 8,
@@ -289,12 +307,8 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
                     qt, kt, vt, attn_mask=band, scale=scale,
                     enable_gqa=H != K)
         lib, backend = _sdpa_ms(torch, sdpa, flush, pinned=Dv != D)
-        # each query row sees min(row + 1, window) keys: QK^T over D and
-        # PV over Dv
-        seen = sum(min(i + 1, win or S) for i in range(S))
-        flops = 2 * B * H * (D + Dv) * seen
-        nbytes = (B * S * (H + K) * (D + Dv)) * dtype.itemsize
-        bound, bound_by = _bounds(nbytes, flops, dt)
+        bound, bound_by = _bounds(*flash_attention_cost(q, k, v, win or 0),
+                                  dt)
         row = {"name": "flash_attention", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
@@ -324,6 +338,7 @@ def _flash_offset_cases(torch, dev, randn, flush) -> None:
     from torch.nn.attention.bias import causal_lower_right
 
     from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cost
 
     for B, H, K, Sq, off, D, Dv, dt in [
             (1, 32, 32, 312, 200, 96, 96, "bfloat16"),
@@ -347,10 +362,8 @@ def _flash_offset_cases(torch, dev, randn, flush) -> None:
             torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=bias, scale=scale),
             flush, pinned=Dv != D)
-        seen = sum(min(off + i + 1, Sk) for i in range(Sq))
-        flops = 2 * B * H * (D + Dv) * seen
-        nbytes = B * (Sq * H * (D + Dv) + Sk * K * (D + Dv)) * dtype.itemsize
-        bound, bound_by = _bounds(nbytes, flops, dt)
+        bound, bound_by = _bounds(
+            *flash_attention_cost(q, k, v, q_offset=off), dt)
         ms = _median_ms(torch, lambda: flash_attention(
             q, k, v, scale=scale, q_offset=off), flush)
         plain = _median_ms(torch, lambda: flash_attention_plain(
@@ -391,6 +404,8 @@ def _decode_cases(torch, dev, randn, flush) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, decode_attention_plain
+    from repro_torch.kernels.decode_attention.ops import \
+        decode_attention_cost
 
     chosen = {}
     # phi3-mini (H = K = 32, D 96); recurrentgemma's ring (H 10, K 1, D
@@ -428,10 +443,10 @@ def _decode_cases(torch, dev, randn, flush) -> dict:
             torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=H != K),
             flush, pinned=Dv != D)
+        # the kernel reads each sequence's valid rows only
         rows = sum(min(n, S) for n in lens)
-        nbytes = dtype.itemsize * (rows * K * (D + Dv) + B * H * (D + Dv)) \
-            + 4 * B
-        bound, bound_by = _bounds(nbytes, 2 * rows * H * (D + Dv), dt)
+        bound, bound_by = _bounds(
+            *decode_attention_cost(q, k, v, vl, rows=rows), dt)
         row = {"name": "decode_attention", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
                "replaces": "src/repro/kernels/decode_attention/kernel.py:90",
@@ -455,7 +470,8 @@ def _rglru_cases(torch, dev, randn, flush) -> dict:
     with the launch shape the wrapper picks.  No single PyTorch call
     computes the scan, so library_ms is null."""
     from repro_torch.kernels import rglru_scan, rglru_scan_plain
-    from repro_torch.kernels.rglru_scan.ops import scan_launch_shape
+    from repro_torch.kernels.rglru_scan.ops import (rglru_scan_cost,
+                                                    scan_launch_shape)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chosen = {}
@@ -471,8 +487,7 @@ def _rglru_cases(torch, dev, randn, flush) -> dict:
         out = rglru_scan(x, a, h0)
         ref = rglru_scan_plain(x.float(), a.float(), h0)
         err = _check(torch, "rglru_scan", out, ref, dt)
-        nbytes = 3 * B * S * dr * dtype.itemsize + 4 * B * dr
-        bound, bound_by = _bounds(nbytes, 2 * B * S * dr, "float32")
+        bound, bound_by = _bounds(*rglru_scan_cost(x, a, h0), "float32")
         row = {"name": "rglru_scan", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
                "replaces": "src/repro/kernels/rglru_scan/kernel.py:66",
@@ -500,7 +515,8 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
     computes the routing, so library_ms is null."""
     from repro_torch.kernels import moe_gating, moe_gating_plain
     from repro_torch.kernels.moe_gating.ops import (gating_launch_shape,
-                                                    max_cluster_blocks)
+                                                    max_cluster_blocks,
+                                                    moe_gating_cost)
 
     chosen = {}
     for name, T, E, k, C, tied in [
@@ -522,8 +538,7 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
                                      f"the plain version by {err}")
         err = float((got[1] - want[1]).abs().max())
         dropped = int((~got[3]).sum())
-        nbytes = 4 * T * E + T * k * (4 + 4 + 4 + 1)
-        bound, bound_by = _bounds(nbytes, T * E * (4 + k), "float32")
+        bound, bound_by = _bounds(*moe_gating_cost(logits, k), "float32")
         row = {"name": "moe_gating", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
                "replaces": "src/repro/kernels/moe_gating/kernel.py:73",
@@ -560,7 +575,8 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_plain,
                                      flash_attention_plain)
-    from repro_torch.kernels.flash_attention.ops import bwd_launch_shape
+    from repro_torch.kernels.flash_attention.ops import (
+        bwd_launch_shape, flash_attention_bwd_cost)
     from repro_torch.launch.probe_flash_bwd import pass_ms
 
     print(f"  flash_attention_bwd tensor-core kernels (ptxas): "
@@ -594,11 +610,8 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
                   for n, g, w in zip("qkv", got, want))
         del got, want
         lib, backend = _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush)
-        seen = sum(min(i + 1, win or S) for i in range(S))
-        flops = 2 * B * H * (3 * D + 2 * Dv) * seen
-        nbytes = dtype.itemsize * B * S * 2 * (H + K) * (D + Dv) \
-            + 4 * B * H * S
-        bound, bound_by = _bounds(nbytes, flops, dt)
+        bound, bound_by = _bounds(*flash_attention_bwd_cost(
+            q, k, v, out, dout, lse, win or 0), dt)
         row = {"name": "flash_attention_bwd", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                "replaces": "src/repro/models/layers.py:194",
@@ -686,7 +699,8 @@ def _rglru_bwd_cases(torch, dev, randn, flush) -> dict:
     round as the kernel's) and bf16, with the launch shape the wrapper
     picks.  No single PyTorch call computes it: library_ms is null."""
     from repro_torch.kernels import rglru_scan_bwd, rglru_scan_bwd_plain
-    from repro_torch.kernels.rglru_scan.ops import scan_launch_shape
+    from repro_torch.kernels.rglru_scan.ops import (rglru_scan_bwd_cost,
+                                                    scan_launch_shape)
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chosen = {}
@@ -704,8 +718,8 @@ def _rglru_bwd_cases(torch, dev, randn, flush) -> dict:
         if dt == "float32" and not exact:
             raise AssertionError("rglru_scan_bwd: f32 is not bit for bit "
                                  "the plain version")
-        nbytes = 5 * B * S * dr * dtype.itemsize + 8 * B * dr
-        bound, bound_by = _bounds(nbytes, 3 * B * S * dr, "float32")
+        bound, bound_by = _bounds(*rglru_scan_bwd_cost(dy, a, h, h0),
+                                  "float32")
         row = {"name": "rglru_scan_bwd", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
                "replaces": "src/repro/models/recurrent.py:91",
@@ -1590,6 +1604,169 @@ def moe_ep_case(torch, dev, card: str, mesh) -> dict:
     return counts
 
 
+#: phase 8's bands: the dry-run's peak memory over the card's (an
+#: undercount is unsafe: the dry-run's purpose is to say a cell fits),
+#: and the most its bound may exceed the measured step (past it a count
+#: is wrong: no step beats its bound)
+MEMORY_BAND = (0.95, 1.15)
+MAX_ROOFLINE_SHARE = 1.05
+
+
+def prediction_phase(torch, dev, card: str) -> dict:
+    """Phase 8: the dry-run (``repro_torch.launch.dryrun``) against the
+    card.  (a) Two cells that fit one card, traced on a 1x1 fake mesh and
+    run for real with the same step function: phi3-mini-3.8b's decode
+    step at batch 4 against a 1024-row cache (bf16 weights, every row
+    valid) and minicpm-2b's train step at B 4 x S 1024 (accum 1, remat
+    full: phase 6's).  Fails unless the FLOPs equal ``FlopCounterMode``'s
+    count of the real step (which takes the kernels' custom ops by their
+    formulas), the predicted peak over ``max_memory_allocated`` lies in
+    MEMORY_BAND (the memory the process held before the cell, the
+    cuBLAS workspaces among it, is added to the prediction and printed)
+    and the bound over the measured median step is at most
+    MAX_ROOFLINE_SHARE.  Then what the custom op adds to an eager call
+    (:func:`_dispatch_cost`).  (b) llama4-maverick x decode_32k on the
+    fake 16x16 mesh as the CLI traces it (MoE, GQA with kv heads replicated
+    over the model axis); its record line.  Returns the launch counts of
+    the real steps, by path."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    launches = {}
+    for arch, shape, ov, reps in [
+            (PHI3, ShapeConfig("decode_b4_c1024", 1024, 4, "decode"), None,
+             20),
+            (MINICPM, ShapeConfig("train_b4_s1024", 1024, 4, "train"),
+             {"accum": 1}, 3)]:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mesh_shape=(1, 1),
+                              extra_overrides=ov)
+        traced = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        fn, args = _real_cell(torch, dev, get_config(arch), shape, ov)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        with FlopCounterMode(display=False) as counter:
+            fn(*args)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        step = statistics.median(times)
+        roof = rec["roofline"]
+        want = rec["memory"]["per_device_total"] + base
+        t_bound = max(roof["t_compute_s"], roof["t_memory_s"],
+                      roof["t_collective_s"])
+        flops = counter.get_total_flops()
+        tag = f"{arch} {shape.name}"
+        print(f"[{card}] dry-run vs card, {tag} (traced in {traced} s, "
+              f"overrides {rec['overrides']}):")
+        print(f"  flops: predicted {int(roof['flops_per_chip'])}, "
+              f"FlopCounterMode {flops}; kernel launches {counts}")
+        print(f"  peak memory: predicted {want} (dry-run "
+              f"{rec['memory']['per_device_total']} + held before "
+              f"{base}), max_memory_allocated {peak}, ratio {want / peak}")
+        print(f"  roofline: t_bound {t_bound} s ({roof['bottleneck']}; "
+              f"t_compute {roof['t_compute_s']}, t_memory "
+              f"{roof['t_memory_s']}), median step {step} s of {reps}, "
+              f"share {t_bound / step}")
+        if int(roof["flops_per_chip"]) != flops:
+            raise AssertionError(f"{tag}: the dry-run counts "
+                                 f"{roof['flops_per_chip']} FLOPs, the card "
+                                 f"{flops}")
+        if not MEMORY_BAND[0] <= want / peak <= MEMORY_BAND[1]:
+            raise AssertionError(f"{tag}: predicted peak {want} is "
+                                 f"{want / peak} of the card's {peak}, "
+                                 f"outside {MEMORY_BAND}")
+        if t_bound / step > MAX_ROOFLINE_SHARE:
+            raise AssertionError(f"{tag}: the bound {t_bound} s is "
+                                 f"{t_bound / step} of the measured step "
+                                 f"{step} s: a count is wrong")
+        for k, n in counts.items():
+            launches.setdefault(k, {})[f"{tag} (dry-run check)"] = n
+        del fn, args
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _dispatch_cost(torch, dev, card)
+    tag = f"{LLAMA4}__decode_32k__pod1"
+    rec = dryrun.run_cell(LLAMA4, "decode_32k")
+    print(f"[{card}] {dryrun.record_line(tag, rec)}")
+    print(f"  fits {rec['fits']}, memory {rec['memory']}, collectives "
+          f"{rec['collectives']['counts']}")
+    return launches
+
+
+def _dispatch_cost(torch, dev, card: str, calls: int = 200) -> None:
+    """What the custom op adds to an eager kernel call on the host: the
+    decode kernel at phi3's batch-1 decode shape, ``calls`` launches
+    through the custom op (the route a traced call takes), the wrapper
+    (an eager call: the launch function) and the launch function itself,
+    in turns, host clock over each run ended by a synchronise; µs a
+    call."""
+    from repro_torch.kernels import decode_attention
+    from repro_torch.kernels.decode_attention.ops import _decode_launch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((1, 32, 96), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((1, 1024, 32, 96), generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    vl = torch.tensor([517], dtype=torch.int32, device=dev)
+    runs = {"custom op": lambda: torch.ops.repro_torch.decode_attention(
+                q, k, v, vl, 96 ** -0.5),
+            "wrapper": lambda: decode_attention(q, k, v, vl),
+            "launch function": lambda: _decode_launch(q, k, v, vl,
+                                                      96 ** -0.5)}
+    us = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)] * 2:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            runs[name]()
+        torch.cuda.synchronize()
+        us[name].append((time.perf_counter() - t) / calls * 1e6)
+    print(f"[{card}] eager decode_attention call, host µs (median of 4 "
+          f"runs of {calls}, in turns): "
+          + ", ".join(f"{n} {statistics.median(u)}" for n, u in us.items()))
+
+
+def _real_cell(torch, dev, cfg, shape, ov):
+    """The step function of a dry-run cell and real inputs for it on
+    ``dev``: random weights from seed 0 (bf16 for serving, as the
+    dry-run's), random tokens, caches of the cell's length."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.training import init_train_state
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S = shape.global_batch, shape.seq_len
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if shape.kind == "train":
+        fn = dryrun.step_fn(cfg, shape, remat_policy="full",
+                            accum=int((ov or {}).get("accum", 1)))
+        state = init_train_state(cfg, gen, dev)
+        return fn, (state, {"tokens": tokens, "labels": tokens})
+    fn = dryrun.step_fn(cfg, shape)
+    params = init_params(dataclasses.replace(cfg, param_dtype="bfloat16"),
+                         gen, dev)
+    caches = dryrun.serve_caches(cfg, shape, device=dev)
+    batch = ({"token": tokens[:, 0]} if shape.kind == "decode"
+             else {"tokens": tokens})
+    return fn, (params, batch, caches)
+
+
 def main() -> int:
     import torch
 
@@ -1755,6 +1932,9 @@ def main() -> int:
         launches[k][f"{PHI3} pipeline, 4 stages (world size 1)"] = n
     for k, n in dist["moe"].items():
         launches[k][f"{DSV2} expert-parallel MoE (world size 1)"] = n
+    # the dry-run held against the card (phase 8)
+    for k, by_path in prediction_phase(torch, dev, card).items():
+        launches.setdefault(k, {}).update(by_path)
 
     for name, row in chosen.items():
         row["launches"] = sum(launches[name].values())

@@ -21,6 +21,8 @@ import contextlib
 import os
 import threading
 
+import torch
+
 from .sharding import P, axis_sizes, placements
 
 _state = threading.local()
@@ -228,6 +230,85 @@ def constraint_spec(x_shape: tuple, kind: str) -> P | None:
             spec[3] = m
         return P(*spec)
     return None
+
+
+def split_heads(x, H: int, hd: int):
+    """``x`` (..., H·hd) as (..., H, hd).  A DTensor sharded along its
+    last dim over a mesh dim whose ranks do not divide H is gathered on
+    that mesh dim first: DTensor cannot cut a shard inside a head, where
+    XLA reshards on its own.  A plain reshape on a plain tensor."""
+    from ..core.streams import is_dtensor
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+        last = x.ndim - 1
+        places = list(x.placements)
+        uneven = [m for m, p in enumerate(places)
+                  if p.is_shard(last) and H % x.device_mesh.size(m)]
+        if uneven:
+            for m in uneven:
+                places[m] = Replicate()
+            x = x.redistribute(x.device_mesh, places)
+    return x.reshape(*x.shape[:-1], H, hd)
+
+
+def write_row(cache, row, value) -> None:
+    """``cache[:, row] = value`` in place: ``cache`` (B, S, ...), ``row``
+    a one-element int64 tensor on its device, ``value`` (B, 1, ...).  A
+    DTensor cache sharded along its rows (a long cache's rows over the
+    model axis) is written by the rank that holds the row, at its local
+    index, as flash-decode writes: DTensor cannot index into a sharded
+    dim in place.  Elsewhere ``index_copy_``."""
+    from ..core.streams import is_dtensor
+    if not is_dtensor(cache):
+        cache.index_copy_(1, row, value.to(cache.dtype))
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = cache.device_mesh
+    places = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+    if not is_dtensor(value):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    val = value.to(cache.dtype).redistribute(mesh, places).to_local()
+    local = cache.to_local()
+    n, offset = local.shape[1], 0
+    for m, p in enumerate(cache.placements):   # mesh dims in shard order
+        if p.is_shard(1):
+            offset = offset * mesh.size(m) + mesh.get_local_rank(m)
+    slot = row - offset * n
+    in_range = (slot >= 0) & (slot < n)
+    slot = slot.clamp(0, n - 1)
+    local.index_copy_(1, slot, torch.where(in_range, val,
+                                           local.index_select(1, slot)))
+
+
+def merge_heads(x):
+    """``x`` (..., H, hd) as (..., H·hd).  A DTensor has any shards of
+    its hd dim gathered, then goes through :class:`_MergeHeads`, whose
+    backward splits the gradient with :func:`split_heads` (the reverse
+    view of a gradient sharded along H·hd over ranks that do not divide
+    H would cut a shard inside a head).  A plain reshape on a plain
+    tensor."""
+    from ..core.streams import is_dtensor
+    if is_dtensor(x):
+        last = x.ndim - 1      # a shard inside each head: gathered first
+        places = list(x.placements)
+        if any(p.is_shard(last) for p in places):
+            from torch.distributed.tensor import Replicate
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p.is_shard(last) else p for p in places])
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+class _MergeHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads = tuple(x.shape[-2:])
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_heads(grad, *ctx.heads)
 
 
 def constrain(x, kind: str):

@@ -3,14 +3,19 @@ their plain PyTorch versions, joined for autograd.
 
 Model code keeps the (B, S, H, D) layout; the forward kernel reads it in
 place through strides (no transpose), so a slice of a KV cache goes in
-as it is.  ``flash_attention`` launches ``csrc/flash_attention.cu`` for a
-CUDA tensor and computes :func:`flash_attention_plain` for a CPU tensor.
-When an input requires a gradient it goes through :class:`FlashAttention`
+as it is.  ``flash_attention`` computes :func:`flash_attention_plain`
+for a CPU tensor and launches ``csrc/flash_attention.cu`` for a CUDA
+tensor; a call something traces goes through the custom op
+``repro_torch::flash_attention`` (the same launch, the outputs' shapes
+for a fake tensor, counted by :func:`flash_attention_cost`, split over a
+mesh by its sharding rule: batch and heads).  When
+an input requires a gradient it goes through :class:`FlashAttention`
 (the reference's ``custom_vjp``, ``repro.models.layers._make_flash``):
 the forward also writes the rows' log-sum-exp, and the backward
-(``csrc/flash_attention_bwd.cu``, or :func:`flash_attention_bwd_plain` on
-the CPU) recomputes the probabilities from it, so nothing of size S x S
-is kept.
+(``csrc/flash_attention_bwd.cu`` through the custom op
+``repro_torch::flash_attention_bwd``, or :func:`flash_attention_bwd_plain`
+on the CPU) recomputes the probabilities from it, so nothing of size
+S x S is kept.
 """
 from __future__ import annotations
 
@@ -18,14 +23,17 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .._build import function
-from .._dtensor import local_operands
+from .._cost import register_cost
+from .._dtensor import kv_for_q_heads, local_operands, route, sharding_rule
 
 __all__ = ["BwdPass", "BwdShape", "FlashAttention", "bwd_launch_shape",
            "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "flash_attention_plain"]
+           "flash_attention_bwd_cost", "flash_attention_bwd_plain",
+           "flash_attention_cost", "flash_attention_plain", "seen_pairs"]
 
 NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -176,6 +184,51 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = True,
             dv.to(v.dtype))
 
 
+def seen_pairs(Sq: int, Sk: int, *, causal: bool = True,
+               window: int | None = None, q_offset: int = 0) -> int:
+    """The (query, key) pairs a call computes: query row i, at position
+    p = q_offset + i, sees keys j <= p (causal; else every key) and
+    p - j < window (a window): the causal half and the window's band, not
+    the masked parts of the tiles at their edges."""
+    p = np.arange(q_offset, q_offset + Sq, dtype=np.int64)
+    hi = np.minimum(p + 1, Sk) if causal else np.full_like(p, Sk)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros_like(p)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_attention_cost(q, k, v, window: int = 0, q_offset: int = 0,
+                         causal: bool = True, with_lse: bool = False,
+                         scale: float = 0.0) -> tuple[int, int]:
+    """(FLOPs, bytes) of a forward call, the custom op's arguments in
+    (``window`` 0: none): the products S = q·Kᵀ over D and P·V over Dv
+    for every pair :func:`seen_pairs` counts, per query head; q, k and v
+    read once, the output (and the f32 log-sum-exp) written once."""
+    B, Sq, H, D = q.shape
+    _, Sk, K, Dv = v.shape
+    seen = seen_pairs(Sq, Sk, causal=causal, window=window or None,
+                      q_offset=q_offset)
+    nbytes = q.element_size() * B * (Sq * H * (D + Dv)
+                                     + Sk * K * (D + Dv))
+    return 2 * B * H * (D + Dv) * seen, nbytes + (4 * B * H * Sq
+                                                  if with_lse else 0)
+
+
+def flash_attention_bwd_cost(q, k, v, out, dout, lse, window: int = 0,
+                             causal: bool = True,
+                             scale: float = 0.0) -> tuple[int, int]:
+    """(FLOPs, bytes) of a backward call: the five products a flash
+    backward needs for every seen pair (S again and dK, dQ over D; dP
+    and dV over Dv), not the kernels' recomputations or bf16 hi/lo
+    splits; q, k, v, out, dout and the log-sum-exp read once, dq, dk and
+    dv written once."""
+    B, Sq, H, D = q.shape
+    _, Sk, K, Dv = v.shape
+    seen = seen_pairs(Sq, Sk, causal=causal, window=window or None)
+    nbytes = q.element_size() * B * (Sq * H * 2 * (D + Dv)
+                                     + Sk * K * 2 * (D + Dv))
+    return 2 * B * H * (3 * D + 2 * Dv) * seen, nbytes + 4 * B * H * Sq
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None, with_lse: bool = False,
@@ -187,10 +240,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     When an input requires a gradient (and grad mode is on), the call
     goes through :class:`FlashAttention`, whose backward is
-    :func:`flash_attention_bwd`.  Otherwise, on a CUDA tensor: launches
-    the kernel on the current stream (the executor's compute stream) and
-    counts the launch in ``flash_attention.launches``; raises on what the
-    kernel does not take.  On a CPU tensor: :func:`flash_attention_plain`.
+    :func:`flash_attention_bwd`.  Otherwise, on a CPU tensor:
+    :func:`flash_attention_plain`; on a CUDA tensor: launches the kernel
+    on the current stream (the executor's compute stream) and counts the
+    launch in ``flash_attention.launches``, raising on what the kernel
+    does not take.  A traced call goes through the custom op: a fake
+    tensor gets the outputs' shapes; DTensors on a mesh of more than one
+    rank run per rank under the op's sharding rule.
     ``with_lse`` also returns the rows' f32 log-sum-exp (B, H, Sq)
     (no autograd).  A gradient is taken at ``q_offset`` 0 only, as the
     reference differentiates only that path (its ``custom_vjp``); at an
@@ -201,6 +257,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
+    q, k, v = kv_for_q_heads(q, k, v, 2, 2)
     if not with_lse and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         if q_offset:
@@ -240,12 +297,24 @@ def _check_cuda(name, tensors) -> None:
 
 
 def _forward(q, k, v, causal, window, scale, with_lse, q_offset=0):
-    B, Sq, H, D = q.shape
-    _, Sk, K, Dv = v.shape
-    if q.device.type == "cpu":
+    how = route(q)
+    if how == "plain":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, with_lse=with_lse,
                                      q_offset=q_offset)
+    args = (q, k, v, window or 0, q_offset, causal, with_lse, scale)
+    out, lse = (_fwd_launch(*args) if how == "launch"
+                else torch.ops.repro_torch.flash_attention(*args))
+    return (out, lse) if with_lse else out
+
+
+def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int, q_offset: int, causal: bool, with_lse: bool,
+                scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's launch on a CUDA tensor: (out, lse), lse
+    empty without ``with_lse`` (the kernel then writes none)."""
+    B, Sq, H, D = q.shape
+    _, Sk, K, Dv = v.shape
     _check_cuda("flash_attention", (q, k, v))
     if D % 8 or D > 256 or Dv % 8 or Dv > 256:
         raise ValueError(f"flash_attention: head dims {D}, {Dv} are not "
@@ -260,12 +329,10 @@ def _forward(q, k, v, causal, window, scale, with_lse, q_offset=0):
             not in _TC_BOXES:
         raise ValueError(f"flash_attention: the bf16 kernel is not built "
                          f"for head dims D {D}, Dv {Dv}")
-    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
+    out, lse = _fwd_fake(q, k, v, window, q_offset, causal, with_lse, scale)
     fn = function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr(),
+             lse.data_ptr() if with_lse else None,
              _DTYPES[q.dtype], B, H, K, Sq, Sk, D, Dv,
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
@@ -275,7 +342,31 @@ def _forward(q, k, v, causal, window, scale, with_lse, q_offset=0):
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
     flash_attention.launches += 1
-    return (out, lse) if with_lse else out
+    return out, lse
+
+
+_fwd_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _fwd_launch, mutates_args=(), device_types="cuda")
+
+
+@_fwd_op.register_kernel("cpu")
+def _fwd_cpu(q, k, v, window, q_offset, causal, with_lse, scale):
+    out = flash_attention_plain(q, k, v, causal=causal, window=window or None,
+                                scale=scale, with_lse=with_lse,
+                                q_offset=q_offset)
+    return out if with_lse else (out, _no_lse(q))
+
+
+def _no_lse(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, window, q_offset, causal, with_lse, scale):
+    B, Sq, H, _ = q.shape
+    out = q.new_empty((B, Sq, H, v.shape[3]))
+    return out, (q.new_empty((B, H, Sq), dtype=torch.float32)
+                 if with_lse else _no_lse(q))
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
@@ -286,12 +377,15 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     forward's, out and dout (B, Sq, H, Dv); dq, dk, dv in the inputs'
     dtype.
 
-    On a CUDA tensor: launches ``csrc/flash_attention_bwd.cu`` (its three
-    passes, and the GQA reduction, on the current stream; bf16 on the
-    tensor cores, f32 on the CUDA cores, see :func:`bwd_launch_shape`) and
-    counts the call in ``flash_attention_bwd.launches``; raises on what
-    the kernel does not take.  On a CPU tensor:
-    :func:`flash_attention_bwd_plain`.
+    On a CPU tensor: :func:`flash_attention_bwd_plain`.  On a CUDA
+    tensor: launches ``csrc/flash_attention_bwd.cu`` (its three passes,
+    and the GQA reduction, on the current stream; bf16 on the tensor
+    cores, f32 on the CUDA cores, see :func:`bwd_launch_shape`) and
+    counts the call in ``flash_attention_bwd.launches``, raising on what
+    the kernel does not take.  A traced call goes through the custom op:
+    a fake tensor gets the outputs' shapes, the kernel's scratch (D_i,
+    the GQA partials) among them; DTensors on a mesh of more than one
+    rank run per rank under the op's sharding rule.
     """
     q, k, v, out, dout, lse = local_operands("flash_attention_bwd", q, k, v,
                                              out, dout, lse)
@@ -303,10 +397,26 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
                          f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} "
                          f"do not fit q {tuple(q.shape)}, v {tuple(v.shape)}")
-    if q.device.type == "cpu":
+    how = route(q)
+    if how == "plain":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse,
                                          causal=causal, window=window,
                                          scale=scale)
+    args = (q, k, v, out, dout, lse, window or 0, causal, scale)
+    return tuple((_bwd_launch(*args) if how == "launch"
+                  else torch.ops.repro_torch.flash_attention_bwd(*args))[:3])
+
+
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+                window: int, causal: bool, scale: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's launch on a CUDA tensor: (dq, dk, dv) and
+    its scratch, D_i (B, H, Sq) and, under GQA, the per-q-head f32 dK
+    and dV partials (empty at H == K)."""
+    B, Sq, H, D = q.shape
+    _, Sk, K, Dv = v.shape
     _check_cuda("flash_attention_bwd", (q, k, v, out, dout))
     if lse.device != q.device or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd: lse must be f32 on q's device")
@@ -322,25 +432,75 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         raise ValueError("flash_attention_bwd: bf16 tensors are read in "
                          "16-byte pieces: a 16-byte aligned base")
     dev = q.device
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    dk_ws = dv_ws = None
-    if H > K:        # per-head partials, summed over each group in order
-        dk_ws = torch.empty((B, Sk, H, D), dtype=torch.float32, device=dev)
-        dv_ws = torch.empty((B, Sk, H, Dv), dtype=torch.float32, device=dev)
+    dq, dk, dv, delta, dk_ws, dv_ws = _bwd_fake(q, k, v, out, dout, lse,
+                                                window, causal, scale)
     fn = function("flash_attention_bwd", "flash_attention_bwd",
                   _BWD_ARGTYPES)
     err = fn(*(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq,
                                       dk, dv)),
-             None if dk_ws is None else dk_ws.data_ptr(),
-             None if dv_ws is None else dv_ws.data_ptr(),
+             dk_ws.data_ptr() if H > K else None,
+             dv_ws.data_ptr() if H > K else None,
              _DTYPES[q.dtype], B, H, K, Sq, Sk, D, Dv, int(causal),
              window or 0, scale, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"error {err}")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return dq, dk, dv, delta, dk_ws, dv_ws
+
+
+_bwd_op = torch.library.custom_op(
+    "repro_torch::flash_attention_bwd", _bwd_launch, mutates_args=(), device_types="cuda")
+
+
+@_bwd_op.register_kernel("cpu")
+def _bwd_cpu(q, k, v, out, dout, lse, window, causal, scale):
+    grads = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal,
+                                      window=window or None, scale=scale)
+    return (*grads, *(_no_lse(q) for _ in range(3)))
+
+
+@_bwd_op.register_fake
+def _bwd_fake(q, k, v, out, dout, lse, window, causal, scale):
+    B, Sq, H, D = q.shape
+    _, Sk, K, Dv = v.shape
+    f32 = dict(dtype=torch.float32)
+    ws = ((q.new_empty((B, Sk, H, D), **f32),
+           q.new_empty((B, Sk, H, Dv), **f32)) if H > K
+          else (_no_lse(q), _no_lse(q)))
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            q.new_empty((B, H, Sq), **f32), *ws)
+
+
+@sharding_rule(torch.ops.repro_torch.flash_attention.default)
+def _fwd_rule(q, k, v, window, q_offset, causal, with_lse, scale):
+    """Independent over the batch (dim 0) and the heads (dim 2 of q, k,
+    v and out, dim 1 of the log-sum-exp); kv_for_q_heads lays out GQA."""
+    from torch.distributed.tensor import Replicate, Shard
+    R, B, Hd = Replicate(), Shard(0), Shard(2)
+    rest = [None] * 5
+    return [([R, R], [R, R, R, *rest]),
+            ([B, B if with_lse else R], [B, B, B, *rest]),
+            ([Hd, Shard(1) if with_lse else R], [Hd, Hd, Hd, *rest])]
+
+
+@sharding_rule(torch.ops.repro_torch.flash_attention_bwd.default)
+def _bwd_rule(q, k, v, out, dout, lse, window, causal, scale):
+    """As the forward's: batch, or heads (D_i and the log-sum-exp on
+    dim 1, the GQA partials on dim 2)."""
+    from torch.distributed.tensor import Replicate, Shard
+    R, B, Hd = Replicate(), Shard(0), Shard(2)
+    gqa = q.shape[2] > k.shape[2]
+    rest = [None] * 3
+    return [([R] * 6, [R] * 6 + rest),
+            ([B, B, B, B, *([B if gqa else R] * 2)], [B] * 6 + rest),
+            ([Hd, Hd, Hd, Shard(1), *([Hd if gqa else R] * 2)],
+             [Hd] * 5 + [Shard(1)] + rest)]
+
+
+register_cost(torch.ops.repro_torch.flash_attention, flash_attention_cost)
+register_cost(torch.ops.repro_torch.flash_attention_bwd,
+              flash_attention_bwd_cost)
 
 
 class FlashAttention(torch.autograd.Function):

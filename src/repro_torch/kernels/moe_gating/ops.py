@@ -1,8 +1,14 @@
 """Fused MoE gating: the CUDA kernel's wrapper and its plain PyTorch
 version.
 
-``moe_gating`` launches ``csrc/moe_gating.cu`` for a CUDA tensor and
-computes :func:`moe_gating_plain` for a CPU tensor.
+``moe_gating`` computes :func:`moe_gating_plain` for a CPU tensor and
+launches ``csrc/moe_gating.cu`` for a CUDA tensor; a call something
+traces goes through the custom op ``repro_torch::moe_gating`` (the same
+launch, the outputs' shapes for a fake tensor, counted by
+:func:`moe_gating_cost`).  Its capacity slots are handed out first come,
+first served across all the tokens of the call, so no dim is
+independent: its sharding rule takes the logits whole (a token-sharded
+call is gathered first, never run one shard as the whole).
 """
 from __future__ import annotations
 
@@ -13,10 +19,11 @@ import torch
 import torch.nn.functional as F
 
 from .._build import function
-from .._dtensor import local_operands
+from .._cost import register_cost
+from .._dtensor import local_operands, route, sharding_rule
 
 __all__ = ["gating_launch_shape", "max_cluster_blocks", "moe_gating",
-           "moe_gating_plain"]
+           "moe_gating_cost", "moe_gating_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] * 6 + [_P]
@@ -71,13 +78,27 @@ def moe_gating_plain(logits: torch.Tensor, *, top_k: int, capacity: int):
             slots.reshape(T, top_k).to(torch.int32), keep.reshape(T, top_k))
 
 
+def moe_gating_cost(logits, top_k: int, capacity: int = 0
+                    ) -> tuple[int, int]:
+    """(FLOPs, bytes) of a call: per token and expert the softmax's 4
+    operations (max, exp, sum, scale) and one comparison per top-k pick;
+    the logits read once and the four (T, k) outputs (eids, gates, slots
+    int32/f32, keep bool) written once."""
+    T, E = logits.shape
+    return T * E * (4 + top_k), \
+        logits.element_size() * T * E + T * top_k * (4 + 4 + 4 + 1)
+
+
 def moe_gating(logits: torch.Tensor, *, top_k: int, capacity: int):
     """logits: (T, E) f32 router scores → (eids, gates, slots, keep), as
     :func:`moe_gating_plain`.
 
-    On a CUDA tensor: launches the kernel on the current stream and
-    counts the launch in ``moe_gating.launches``; raises on what the
-    kernel does not take.  On a CPU tensor: :func:`moe_gating_plain`.
+    On a CPU tensor: :func:`moe_gating_plain`.  On a CUDA tensor:
+    launches the kernel on the current stream and counts the launch in
+    ``moe_gating.launches``; raises on what the kernel does not take.  A
+    traced call goes through the custom op: a fake tensor gets the
+    outputs' shapes; a DTensor on a mesh of more than one rank is taken
+    whole.
     """
     (logits,) = local_operands("moe_gating", logits)
     if logits.dim() != 2:
@@ -87,8 +108,19 @@ def moe_gating(logits: torch.Tensor, *, top_k: int, capacity: int):
     if not 1 <= top_k <= E or capacity < 1 or T < 1:
         raise ValueError(f"moe_gating: top_k {top_k} of {E} experts, "
                          f"capacity {capacity}, {T} tokens")
-    if logits.device.type == "cpu":
+    how = route(logits)
+    if how == "plain":
         return moe_gating_plain(logits, top_k=top_k, capacity=capacity)
+    if how == "launch":
+        return _gating_launch(logits, top_k, capacity)
+    return tuple(torch.ops.repro_torch.moe_gating(logits, top_k, capacity))
+
+
+def _gating_launch(logits: torch.Tensor, top_k: int, capacity: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """The kernel's launch on a CUDA tensor."""
+    T, E = logits.shape
     if logits.device.type != "cuda":
         raise ValueError(f"moe_gating: logits on {logits.device}; the kernel "
                          f"needs a CUDA device")
@@ -114,6 +146,34 @@ def moe_gating(logits: torch.Tensor, *, top_k: int, capacity: int):
     moe_gating.launches += 1
     return eids, gates, slots, keep
 
+
+_gating_op = torch.library.custom_op(
+    "repro_torch::moe_gating", _gating_launch, mutates_args=(), device_types="cuda")
+
+
+@_gating_op.register_kernel("cpu")
+def _gating_cpu(logits, top_k, capacity):
+    return moe_gating_plain(logits, top_k=top_k, capacity=capacity)
+
+
+@_gating_op.register_fake
+def _gating_fake(logits, top_k, capacity):
+    shape = (logits.shape[0], top_k)
+    return (logits.new_empty(shape, dtype=torch.int32),
+            logits.new_empty(shape, dtype=torch.float32),
+            logits.new_empty(shape, dtype=torch.int32),
+            logits.new_empty(shape, dtype=torch.bool))
+
+
+@sharding_rule(torch.ops.repro_torch.moe_gating.default)
+def _gating_rule(logits, top_k, capacity):
+    """The capacity slots run across every token: the logits whole."""
+    from torch.distributed.tensor import Replicate
+    R = Replicate()
+    return [([R, R, R, R], [R, None, None])]
+
+
+register_cost(torch.ops.repro_torch.moe_gating, moe_gating_cost)
 
 #: launches of the CUDA kernel (never of the plain version)
 moe_gating.launches = 0

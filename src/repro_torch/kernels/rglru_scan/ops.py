@@ -1,11 +1,15 @@
 """RG-LRU scan: the CUDA kernels' wrappers (forward and backward) and
 their plain PyTorch versions, joined for autograd.
 
-``rglru_scan`` launches ``csrc/rglru_scan.cu`` for a CUDA tensor and
-computes :func:`rglru_scan_plain` for a CPU tensor; when an input
-requires a gradient it goes through :class:`RGLRUScan`, whose backward is
-the reverse-time chain of ``csrc/rglru_scan_bwd.cu``
-(:func:`rglru_scan_bwd_plain` on the CPU).
+``rglru_scan`` computes :func:`rglru_scan_plain` for a CPU tensor and
+launches ``csrc/rglru_scan.cu`` for a CUDA tensor; a call something
+traces goes through the custom op ``repro_torch::rglru_scan`` (the same
+launch, the output's shape for a fake tensor, counted by
+:func:`rglru_scan_cost`, split over a mesh by its sharding rule: batch
+and channels).  When an input requires a gradient the call goes
+through :class:`RGLRUScan`, whose backward is the reverse-time chain of
+``csrc/rglru_scan_bwd.cu`` (:func:`rglru_scan_bwd_plain` on the CPU),
+the custom op ``repro_torch::rglru_scan_bwd``.
 """
 from __future__ import annotations
 
@@ -16,10 +20,12 @@ from typing import NamedTuple
 import torch
 
 from .._build import function
-from .._dtensor import local_operands
+from .._cost import register_cost
+from .._dtensor import local_operands, route, sharding_rule
 
 __all__ = ["RGLRUScan", "ScanShape", "rglru_scan", "rglru_scan_bwd",
-           "rglru_scan_bwd_plain", "rglru_scan_plain", "scan_launch_shape"]
+           "rglru_scan_bwd_cost", "rglru_scan_bwd_plain", "rglru_scan_cost",
+           "rglru_scan_plain", "scan_launch_shape"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -116,15 +122,35 @@ def rglru_scan_bwd_plain(dy: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
     return dx.to(dy.dtype), da.to(dy.dtype), g
 
 
+def rglru_scan_cost(x, a, h0) -> tuple[int, int]:
+    """(FLOPs, bytes) of a call: a multiply and an add per step and
+    channel (f32); x and a read once, the output written once, h0 read."""
+    B, S, dr = x.shape
+    return 2 * B * S * dr, \
+        3 * B * S * dr * x.element_size() + h0.element_size() * B * dr
+
+
+def rglru_scan_bwd_cost(dy, a, h, h0) -> tuple[int, int]:
+    """(FLOPs, bytes) of a backward call: per step and channel the carry's
+    multiply-add and dh·h_{t−1} (f32); dy, a and h read once, dx and da
+    written once, h0 read and dh0 written."""
+    B, S, dr = dy.shape
+    return 3 * B * S * dr, \
+        5 * B * S * dr * dy.element_size() + 2 * h0.element_size() * B * dr
+
+
 def rglru_scan(x: torch.Tensor, a: torch.Tensor,
                h0: torch.Tensor) -> torch.Tensor:
     """x, a: (B, S, dr) of one type; h0: (B, dr) f32 carry.
 
     When an input requires a gradient (and grad mode is on), the call
-    goes through :class:`RGLRUScan`.  Otherwise, on a CUDA tensor:
-    launches the kernel on the current stream and counts the launch in
-    ``rglru_scan.launches``; raises on what the kernel does not take.  On
-    a CPU tensor: :func:`rglru_scan_plain`.
+    goes through :class:`RGLRUScan`.  Otherwise, on a CPU tensor:
+    :func:`rglru_scan_plain`; on a CUDA tensor: launches the kernel on
+    the current stream and counts the launch in ``rglru_scan.launches``,
+    raising on what the kernel does not take.  A traced call goes through
+    the custom op: a fake tensor gets the output's shape; DTensors on a
+    mesh of more than one rank run per rank under the op's sharding
+    rule.
     """
     x, a, h0 = local_operands("rglru_scan", x, a, h0)
     if torch.is_grad_enabled() and (
@@ -154,8 +180,18 @@ def _forward(x, a, h0):
     if a.shape != x.shape or tuple(h0.shape) != (B, dr):
         raise ValueError(f"rglru_scan: x {tuple(x.shape)}, a "
                          f"{tuple(a.shape)}, h0 {tuple(h0.shape)} do not fit")
-    if x.device.type == "cpu":
+    how = route(x)
+    if how == "plain":
         return rglru_scan_plain(x, a, h0)
+    if how == "launch":
+        return _scan_launch(x, a, h0)
+    return torch.ops.repro_torch.rglru_scan(x, a, h0)
+
+
+def _scan_launch(x: torch.Tensor, a: torch.Tensor,
+                 h0: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's launch on a CUDA tensor."""
+    B, S, dr = x.shape
     _check_cuda("rglru_scan", (x, a), h0)
     out = torch.empty_like(x)
     shape = scan_launch_shape(
@@ -171,16 +207,32 @@ def _forward(x, a, h0):
     return out
 
 
+_scan_op = torch.library.custom_op(
+    "repro_torch::rglru_scan", _scan_launch, mutates_args=(), device_types="cuda")
+
+
+@_scan_op.register_kernel("cpu")
+def _scan_cpu(x, a, h0):
+    return rglru_scan_plain(x, a, h0)
+
+
+@_scan_op.register_fake
+def _scan_fake(x, a, h0):
+    return torch.empty_like(x)
+
+
 def rglru_scan_bwd(dy: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
                    h0: torch.Tensor):
     """The gradients (dx, da, dh0) of ``h = rglru_scan(x, a, h0)`` at
     ``dy``: dy, a, h (B, S, dr) of one type, h0 (B, dr) f32.  dx and da
     in that type, dh0 f32.
 
-    On a CUDA tensor: launches ``csrc/rglru_scan_bwd.cu`` on the current
-    stream and counts the launch in ``rglru_scan_bwd.launches``; raises on
-    what the kernel does not take.  On a CPU tensor:
-    :func:`rglru_scan_bwd_plain`."""
+    On a CPU tensor: :func:`rglru_scan_bwd_plain`.  On a CUDA tensor:
+    launches ``csrc/rglru_scan_bwd.cu`` on the current stream and counts
+    the launch in ``rglru_scan_bwd.launches``, raising on what the kernel
+    does not take.  A traced call goes through the custom op: a fake
+    tensor gets the outputs' shapes; DTensors on a mesh of more than one
+    rank run per rank under the op's sharding rule."""
     dy, a, h, h0 = local_operands("rglru_scan_bwd", dy, a, h, h0)
     B, S, dr = dy.shape
     if a.shape != dy.shape or h.shape != dy.shape \
@@ -188,8 +240,19 @@ def rglru_scan_bwd(dy: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
         raise ValueError(f"rglru_scan_bwd: dy {tuple(dy.shape)}, a "
                          f"{tuple(a.shape)}, h {tuple(h.shape)}, h0 "
                          f"{tuple(h0.shape)} do not fit")
-    if dy.device.type == "cpu":
+    how = route(dy)
+    if how == "plain":
         return rglru_scan_bwd_plain(dy, a, h, h0)
+    if how == "launch":
+        return _scan_bwd_launch(dy, a, h, h0)
+    return tuple(torch.ops.repro_torch.rglru_scan_bwd(dy, a, h, h0))
+
+
+def _scan_bwd_launch(dy: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
+                     h0: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's launch on a CUDA tensor."""
+    B, S, dr = dy.shape
     _check_cuda("rglru_scan_bwd", (dy, a, h), h0)
     dx, da = torch.empty_like(dy), torch.empty_like(dy)
     dh0 = torch.empty_like(h0)
@@ -207,6 +270,42 @@ def rglru_scan_bwd(dy: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
                            f"{err}")
     rglru_scan_bwd.launches += 1
     return dx, da, dh0
+
+
+_scan_bwd_op = torch.library.custom_op(
+    "repro_torch::rglru_scan_bwd", _scan_bwd_launch, mutates_args=(), device_types="cuda")
+
+
+@_scan_bwd_op.register_kernel("cpu")
+def _scan_bwd_cpu(dy, a, h, h0):
+    return rglru_scan_bwd_plain(dy, a, h, h0)
+
+
+@_scan_bwd_op.register_fake
+def _scan_bwd_fake(dy, a, h, h0):
+    return torch.empty_like(dy), torch.empty_like(dy), torch.empty_like(h0)
+
+
+@sharding_rule(torch.ops.repro_torch.rglru_scan.default)
+def _scan_rule(x, a, h0):
+    """Independent over the batch (dim 0) and the channels (x's dim 2,
+    h0's dim 1); the time dim is the chain."""
+    from torch.distributed.tensor import Replicate, Shard
+    R, B, C = Replicate(), Shard(0), Shard(2)
+    return [([R], [R, R, R]), ([B], [B, B, B]), ([C], [C, C, Shard(1)])]
+
+
+@sharding_rule(torch.ops.repro_torch.rglru_scan_bwd.default)
+def _scan_bwd_rule(dy, a, h, h0):
+    """As the forward's: batch, or channels."""
+    from torch.distributed.tensor import Replicate, Shard
+    R, B, C, C0 = Replicate(), Shard(0), Shard(2), Shard(1)
+    return [([R, R, R], [R, R, R, R]), ([B, B, B], [B, B, B, B]),
+            ([C, C, C0], [C, C, C, C0])]
+
+
+register_cost(torch.ops.repro_torch.rglru_scan, rglru_scan_cost)
+register_cost(torch.ops.repro_torch.rglru_scan_bwd, rglru_scan_bwd_cost)
 
 
 class RGLRUScan(torch.autograd.Function):

@@ -18,6 +18,13 @@ line; the last line holds each side's medians.
 
     python -m repro_torch.launch.serve_ab --arch recurrentgemma-2b \\
         --a build/parent --b . --long 3000
+
+``--train B,S,STEPS`` compares training instead: each run trains the
+model at full width from seed 0 through ``launch.train.train`` for
+STEPS steps of B × S tokens and reports the median step past the first.
+
+    python -m repro_torch.launch.serve_ab --arch minicpm-2b \\
+        --a build/parent --b . --train 4,1024,5
 """
 from __future__ import annotations
 
@@ -73,12 +80,24 @@ if long:
 print(json.dumps(res))
 """
 
+_TRAIN_CHILD = r"""
+import json, statistics, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch.train import train
+
+B, S, steps = (int(n) for n in sys.argv[2].split(","))
+out = train(get_config(sys.argv[1]), steps=steps, batch=B, seq=S,
+            device=torch.device("cuda:0"))
+print(json.dumps({"step_s": statistics.median(out["step_seconds"][1:])}))
+"""
+
 _KEYS = ("tokens_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s")
 
 
-def _run(root: str, arch: str, long: int) -> dict:
+def _run(root: str, arch: str, child: str, arg: str) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
-    out = subprocess.run([sys.executable, "-c", _CHILD, arch, str(long)],
+    out = subprocess.run([sys.executable, "-c", child, arch, arg],
                          cwd=root, env=env, capture_output=True, text=True,
                          check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -93,14 +112,19 @@ def main(argv=None) -> int:
     p.add_argument("--long", type=int, default=0,
                    help="add a prompt of this many tokens and time its "
                         "prefill")
+    p.add_argument("--train", default=None, metavar="B,S,STEPS",
+                   help="compare train steps of B x S tokens instead")
     args = p.parse_args(argv)
     keys = _KEYS + (("prefill_long_s",) if args.long else ())
+    child, arg = _CHILD, str(args.long)
+    if args.train:
+        keys, child, arg = ("step_s",), _TRAIN_CHILD, args.train
 
     runs = {"a": [], "b": []}
     for _ in range(args.rounds):
         for side in ("a", "b", "b", "a"):
             res = _run(os.path.abspath(getattr(args, side)), args.arch,
-                       args.long)
+                       child, arg)
             runs[side].append(res)
             print(json.dumps({"side": side, **res}), flush=True)
     print(json.dumps({side: {k: statistics.median(r[k] for r in rs)

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.context import (constrain, decode_shard_info,
-                                   decode_tp_active)
+                                   decode_tp_active, merge_heads,
+                                   split_heads, write_row)
 from ..kernels import decode_attention, flash_attention
 
 Params = dict[str, Any]
@@ -181,9 +182,9 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
         kind = "batch_only"
     else:
         kind = "heads"                 # projections emit head-sharded
-    q = constrain((x @ p["wq"].to(cdt)).reshape(B, S, H, hd), kind)
-    k = constrain((x @ p["wk"].to(cdt)).reshape(B, S, K, hd), kind)
-    v = constrain((x @ p["wv"].to(cdt)).reshape(B, S, K, hd), kind)
+    q = constrain(split_heads(x @ p["wq"].to(cdt), H, hd), kind)
+    k = constrain(split_heads(x @ p["wk"].to(cdt), K, hd), kind)
+    v = constrain(split_heads(x @ p["wv"].to(cdt), K, hd), kind)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.m_rope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.m_rope_sections)
     window = cfg.rec.local_window if local else None
@@ -214,8 +215,8 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
             # dtype); a ring holds exactly the past window, so validity
             # is the whole mask
             row, valid_len = step[:2]
-            k_cache.index_copy_(1, row, k.to(k_cache.dtype))
-            v_cache.index_copy_(1, row, v.to(v_cache.dtype))
+            write_row(k_cache, row, k)
+            write_row(v_cache, row, v)
             out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
                             valid_len=valid_len)
         elif local:
@@ -238,7 +239,7 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
         new_cache = {"k": k_cache, "v": v_cache, "length": length + S}
     # H·hd contracts over the model axis: wo stays put
     out = constrain(out.reshape(B, S, H, hd), "heads")
-    out = out.reshape(B, S, H * hd) @ p["wo"].to(cdt)
+    out = merge_heads(out) @ p["wo"].to(cdt)
     if dtp:
         out = constrain(out, "dtp_features")
     return out, new_cache
@@ -335,7 +336,7 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
         q = (x @ p["w_dq"].to(cdt)) @ p["w_uq"].to(cdt)
     else:
         q = x @ p["wq"].to(cdt)
-    q = q.reshape(B, S, H, m.qk_nope_dim + m.qk_rope_dim)
+    q = split_heads(q, H, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = x @ p["w_dkv"].to(cdt)                                # (B,S,rank)
@@ -350,8 +351,8 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
         c_cache, kr_cache = cache["c_kv"], cache["k_rope"]
         if S == 1:
             row, valid_len = step[:2]
-            c_cache.index_copy_(1, row, c_kv.to(c_cache.dtype))
-            kr_cache.index_copy_(1, row, k_rope.to(kr_cache.dtype))
+            write_row(c_cache, row, c_kv)
+            write_row(kr_cache, row, k_rope)
             c_all, kr_all = c_cache.to(cdt), kr_cache.to(cdt)
         else:
             end = _prompt_rows(c_cache, length, S)
@@ -361,20 +362,23 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
             kr_all = kr_cache[:, :end].to(cdt)
             q_offset = length
         new_cache = {"c_kv": c_cache, "k_rope": kr_cache, "length": length + S}
+    # a cache is sharded over its rows: its products take them gathered
+    c_all, kr_all = constrain(c_all, "batch_only"), constrain(kr_all,
+                                                               "batch_only")
     L = c_all.shape[1]
-    k_nope = constrain((c_all @ p["w_uk"].to(cdt)).reshape(
-        B, L, H, m.qk_nope_dim), "heads")
-    v = constrain((c_all @ p["w_uv"].to(cdt)).reshape(
-        B, L, H, m.v_head_dim), "heads")
-    k = torch.cat([k_nope, kr_all[:, :, None, :].expand(B, L, H, -1)],
-                  dim=-1)
+    k_nope = constrain(split_heads(c_all @ p["w_uk"].to(cdt), H,
+                                   m.qk_nope_dim), "heads")
+    v = constrain(split_heads(c_all @ p["w_uv"].to(cdt), H, m.v_head_dim),
+                  "heads")
+    k = torch.cat([k_nope, kr_all[:, :, None, :].expand(
+        B, L, H, kr_all.shape[-1])], dim=-1)
     k = constrain(k, "heads")
     q = constrain(torch.cat([q_nope, q_rope], dim=-1), "heads")
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
     out = attention(q, k, v, causal=True, q_offset=q_offset, scale=scale,
                     valid_len=valid_len)
     out = constrain(out, "heads")
-    out = out.reshape(B, S, H * m.v_head_dim) @ p["wo"].to(cdt)
+    out = merge_heads(out) @ p["wo"].to(cdt)
     return out, new_cache
 
 

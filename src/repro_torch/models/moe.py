@@ -29,7 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.context import manual_mode, moe_shard_info
+from ..core.streams import is_dtensor
+from ..distributed.context import constrain, manual_mode, moe_shard_info
 from ..distributed.sharding import P, as_like, axis_sizes, local_block
 from ..kernels import moe_gating
 from .layers import dense_init, ffn_forward, init_ffn
@@ -92,6 +93,12 @@ def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False):
     m = cfg.moe
     Tg, d = xg.shape
     C = _capacity(cfg, Tg)
+    if is_dtensor(xg):
+        # sharded tokens (a mesh of more ranks): the capacity slots run
+        # across every token of the group, so each rank routes it whole
+        xg = xg.full_tensor()
+        if is_dtensor(router_w):
+            router_w = router_w.full_tensor()
     logits = xg.float() @ router_w
     eids, gates, slots, keep = moe_gating(logits.detach(), top_k=m.top_k,
                                           capacity=C)
@@ -151,16 +158,15 @@ def _moe_local(cfg, p: Params, x, cdt, aux: bool = False):
 def _all_gather(t, mesh, axes, dim: int):
     """``t`` gathered tiled along ``dim`` over mesh ``axes`` (the innermost
     axis first, so blocks land in the axes' row-major order, as the
-    reference's ``all_gather(..., axes, tiled=True)``).  An axis of one
+    reference's ``all_gather(..., axes, tiled=True)``), differentiable
+    as the reference's (its gradient a reduce-scatter).  An axis of one
     rank gathers ``t`` itself, with no copy (XLA elides it too; a copy
     of deepseek-v2's 7.5 GB of bf16 experts cost 15 ms a call)."""
-    import torch.distributed as dist
+    from torch.distributed.nn.functional import all_gather
     for ax in reversed(axes):
-        n = axis_sizes(mesh)[ax]
-        if n == 1:
+        if axis_sizes(mesh)[ax] == 1:
             continue
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(ax))
+        parts = all_gather(t.contiguous(), group=mesh.get_group(ax))
         t = torch.cat(parts, dim=dim)
     return t
 
@@ -169,8 +175,9 @@ def _all_to_all(t, mesh, axis, split: int, concat: int):
     """The reference's tiled ``all_to_all(t, axis, split, concat)`` for a
     3-d ``t`` and split/concat over dims 0 and 1: ``t`` cut into M blocks
     along ``split``, block i sent to rank i of ``axis``, the blocks
-    received put side by side along ``concat`` in rank order."""
-    import torch.distributed as dist
+    received put side by side along ``concat`` in rank order;
+    differentiable (its gradient the reverse exchange)."""
+    from torch.distributed.nn.functional import all_to_all_single
     M = axis_sizes(mesh)[axis]
     a, b, d = t.shape
     if split == 0:                       # (E, C, d) → (E/M, M·C, d)
@@ -178,8 +185,8 @@ def _all_to_all(t, mesh, axis, split: int, concat: int):
     else:                                # (E/M, M·C, d) → (E, C, d)
         send = t.reshape(a, M, b // M, d).transpose(0, 1)
     send = send.contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=mesh.get_group(axis))
+    recv = all_to_all_single(torch.empty_like(send), send,
+                             group=mesh.get_group(axis))
     if split == 0:
         return recv.transpose(0, 1).reshape(a // M, M * b, d)
     return recv.reshape(M * a, b // M, d)
@@ -202,9 +209,10 @@ def _moe_shard_map(cfg, p: Params, x, cdt, mesh, baxes, maxis,
     ``x``, the router and the expert weights are global DTensors (taken
     to this rank's blocks, as the reference's shard_map in_specs: x
     (batch, model, ·), experts (model, batch, ·) / (model, ·, batch)) or
-    this rank's blocks already (plain tensors).  Returns (out, aux), out
-    of ``x``'s kind."""
-    import torch.distributed as dist
+    this rank's blocks already (plain tensors).  Returns (out, aux), both
+    of ``x``'s kind; the exchanges are differentiable, as the reference's
+    collectives are."""
+    from torch.distributed.nn.functional import all_reduce
 
     m = cfg.moe
     E = m.n_experts
@@ -237,14 +245,18 @@ def _moe_shard_map(cfg, p: Params, x, cdt, mesh, baxes, maxis,
                              gate, T, m.top_k, d).reshape(x_blk.shape)
         if aux_v is not None:
             for ax in all_axes:
-                dist.all_reduce(aux_v, group=mesh.get_group(ax))
+                aux_v = all_reduce(aux_v, group=mesh.get_group(ax))
             n = 1
             for ax in all_axes:
                 n *= axis_sizes(mesh)[ax]
-            aux_v = aux_v / n
+            aux_v = as_like(aux_v / n, x, mesh, P())
     out = as_like(out, x, mesh, x_spec)
     if "shared" in p:
-        out = out + ffn_forward(cfg, p["shared"], x.to(cdt))
+        # in the shared experts' layout, so their gradients come back in
+        # it (a product over tokens sharded on batch and sequence is one
+        # DTensor cannot take); the identity outside rules
+        out = constrain(out, "batch_only") + ffn_forward(cfg, p["shared"],
+                                                         x.to(cdt))
     return out, aux_v
 
 

@@ -21,6 +21,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..distributed.context import merge_heads, split_heads
 from ..kernels import rglru_scan
 from .layers import dense_init
 
@@ -57,10 +58,9 @@ def init_rglru_block(cfg, gen: torch.Generator, device,
 
 def _block_diag(x, w):
     """x: (B, S, dr); w: (nb, dh, dh) block-diagonal — batched matmul."""
-    B, S, dr = x.shape
     nb, dh, _ = w.shape
-    xb = x.reshape(B, S, nb, dh)
-    return torch.einsum("bsnd,nde->bsne", xb, w).reshape(B, S, dr)
+    return merge_heads(torch.einsum("bsnd,nde->bsne", split_heads(x, nb, dh),
+                                    w))
 
 
 def _causal_conv(x, w, b, state=None):

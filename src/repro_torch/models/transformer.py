@@ -271,7 +271,7 @@ def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
     ``cache`` holds one layer's views of the stacked cache: attention
     writes its k/v rows into them, and a recurrent state is copied back.
     Returns x and the MoE load-balance aux (None unless ``want_aux``)."""
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = _projection_input(L.rms_norm(x, p["norm1"], cfg.norm_eps))
     if mixer in _RECURRENT:
         h, state = _RECURRENT[mixer](cfg, p["mixer"], h, cache)
         if cache is not None:
@@ -288,13 +288,12 @@ def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
     x = x + _residual(h)
     aux = None
     if ffn == "dense":
-        h = L.ffn_forward(cfg, p["ffn"],
-                          L.rms_norm(x, p["norm2"], cfg.norm_eps))
+        h = L.ffn_forward(cfg, p["ffn"], _projection_input(
+            L.rms_norm(x, p["norm2"], cfg.norm_eps)))
         x = x + _residual(h)
     elif ffn == "moe":
-        h, aux = M.moe_forward(cfg, p["ffn"],
-                               L.rms_norm(x, p["norm2"], cfg.norm_eps),
-                               aux=want_aux)
+        h, aux = M.moe_forward(cfg, p["ffn"], _projection_input(
+            L.rms_norm(x, p["norm2"], cfg.norm_eps)), aux=want_aux)
         x = x + _residual(h)
     return x, aux
 
@@ -375,6 +374,17 @@ def _residual(x):
     return constrain(x, "residual")
 
 
+def _projection_input(h):
+    """``h`` (B, S, d) as a block's projections take it: under rules, the
+    sequence gathered (Megatron-SP's all-gather before the column-parallel
+    products: DTensor cannot multiply an activation sharded over both
+    batch and sequence); the identity outside rules, on a plain tensor
+    and in a 2D-TP decode step."""
+    if decode_tp_active() and h.shape[1] == 1:
+        return h
+    return constrain(h, "batch_only")
+
+
 def _decode_steps(caches, pos, batch: int) -> dict:
     """The decode step's cache row and mask per attention cache size W
     (a k/v or an MLA latent cache), computed on the device from ``pos``
@@ -452,7 +462,7 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
                            gcache, steps, auxes, remat_policy)
         if caches is not None:
             new_caches.append(nc)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _projection_input(L.rms_norm(x, params["final_norm"], cfg.norm_eps))
     if logits_slice:
         x = x[:, -1:]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -526,7 +536,7 @@ def _stage_forward(cfg: ModelConfig, groups: tuple, first: bool, last: bool,
         x, _ = _run_group(cfg, g, gp, x, positions, None, {}, None)
     if not last:
         return x
-    x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    x = _projection_input(L.rms_norm(x, p["final_norm"], cfg.norm_eps))
     head = p["embed"].T if cfg.tie_embeddings else p["lm_head"]
     return (x @ head.to(cdt)).float()
 
@@ -559,7 +569,11 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    # -logp at each label, as the reference's take_along_axis; nll_loss's
+    # backward writes each row's one entry (gather's would allocate the
+    # whole logits' shape on every rank under DTensor)
+    nll = F.nll_loss(logp.flatten(0, 1), safe.flatten(),
+                     reduction="none").reshape(safe.shape)
     nll = torch.where(mask, nll, 0.0)
     denom = mask.sum().clamp(min=1)
     loss = nll.sum() / denom

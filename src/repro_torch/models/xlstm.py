@@ -22,15 +22,24 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.streams import is_dtensor
+from ..distributed.context import merge_heads, split_heads
 from .layers import dense_init
 
 Params = dict
 f32 = torch.float32
 
 
+def _log_sigmoid(x):
+    """log σ(x); on a DTensor as −softplus(−x), the same function: DTensor
+    has no sharding rule for ``log_sigmoid_forward``."""
+    return -F.softplus(-x) if is_dtensor(x) else F.logsigmoid(x)
+
+
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
+
 def _mlstm_dims(cfg) -> tuple[int, int, int]:
     """(inner width di, heads H, head width dh)."""
     di = int(cfg.d_model * cfg.rec.mlstm_proj_factor)
@@ -115,7 +124,7 @@ def mlstm_forward(cfg, p: Params, x, state=None, chunk: int = 1024):
     the step form."""
     cdt = getattr(torch, cfg.compute_dtype)
     B, S, d = x.shape
-    di, H, dh = _mlstm_dims(cfg)
+    _, H, dh = _mlstm_dims(cfg)
     up = x @ p["w_up"].to(cdt)
     xb, og = torch.chunk(up, 2, dim=-1)
     o = torch.sigmoid(og.to(f32))
@@ -123,14 +132,14 @@ def mlstm_forward(cfg, p: Params, x, state=None, chunk: int = 1024):
     def heads(w):
         """Block-diagonal projection of xb, split into (B, H, S, dh)."""
         nb, dq, _ = w.shape
-        y = torch.einsum("bsnd,nde->bsne", xb.reshape(B, S, nb, dq),
+        y = torch.einsum("bsnd,nde->bsne", split_heads(xb, nb, dq),
                          w.to(cdt))
-        return y.reshape(B, S, H, dh).transpose(1, 2)
+        return split_heads(merge_heads(y), H, dh).transpose(1, 2)
 
     q, k, v = heads(p["w_q"]), heads(p["w_k"]), heads(p["w_v"])
     xf = xb.to(f32)
     log_i = (xf @ p["w_i"].to(f32) + p["b_i"]).transpose(1, 2)   # (B,H,S)
-    log_f = F.logsigmoid(xf @ p["w_f"].to(f32) + p["b_f"]).transpose(1, 2)
+    log_f = _log_sigmoid(xf @ p["w_f"].to(f32) + p["b_f"]).transpose(1, 2)
 
     if state is None:
         C0 = torch.zeros((B, H, dh, dh), dtype=f32, device=x.device)
@@ -171,7 +180,7 @@ def mlstm_forward(cfg, p: Params, x, state=None, chunk: int = 1024):
         h = torch.cat(hs, dim=2)
         new_state = {"C": C, "n": n, "m": m}
 
-    h = h.transpose(1, 2).reshape(B, S, di) * o
+    h = merge_heads(h.transpose(1, 2)) * o
     out = h.to(cdt) @ p["w_down"].to(cdt)
     return out, (new_state if state is not None else None)
 
@@ -231,12 +240,12 @@ def slstm_forward(cfg, p: Params, x, state=None):
     b = p["b"]
     hs = []
     for t in range(S):
-        rec = torch.einsum("bhd,hde->bhe", h.reshape(B, H, dh),
-                           r).reshape(B, 4 * d)
+        rec = merge_heads(torch.einsum("bhd,hde->bhe",
+                                       split_heads(h, H, dh), r))
         z, i, f, o = torch.chunk(pre[:, t] + rec + b, 4, dim=-1)
         z = torch.tanh(z)
         o = torch.sigmoid(o)
-        log_f = F.logsigmoid(f)
+        log_f = _log_sigmoid(f)
         m_new = torch.maximum(log_f + m, i)
         i_ = torch.exp(i - m_new)
         f_ = torch.exp(log_f + m - m_new)

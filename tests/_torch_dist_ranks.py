@@ -59,9 +59,10 @@ def moe_want(cfg, p, x):
 
 def rank_main(rank: int, world: int, store: str) -> None:
     """One spawned gloo rank: flash-decode over a (1, 2) mesh, the
-    expert-parallel MoE over (1, 2) and (2, 1) meshes, each against its
-    single-device path on this rank's share; a sharded DTensor refused
-    by a kernel wrapper; mesh bins of a tiled mesh."""
+    expert-parallel MoE over (1, 2) and (2, 1) meshes (and its gradient
+    to this rank's tokens), each against its single-device path on this
+    rank's share; a head-sharded DTensor run
+    per rank by a kernel's sharding rule; mesh bins of a tiled mesh."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Shard
@@ -138,17 +139,113 @@ def rank_main(rank: int, world: int, store: str) -> None:
             dist.all_gather(auxes, want_aux)
             np.testing.assert_allclose(float(aux), float(sum(auxes)) / world,
                                        **COLL_TOL)
-    # a kernel never runs one shard as the whole operand
+            # the exchanges are differentiable: this rank's tokens get the
+            # single-device path's gradient
+            xg = [x_blk.clone().requires_grad_(True) for _ in range(2)]
+            tmoe._moe_shard_map(cfg, local, xg[0], torch.float32, mesh,
+                                ("data",), "model")[0].sum().backward()
+            moe_want(cfg, p, xg[1])[0].sum().backward()
+            np.testing.assert_allclose(xg[0].grad.numpy(),
+                                       xg[1].grad.numpy(), **COLL_TOL)
+    # a kernel never runs one shard as the whole operand: a head-sharded
+    # call runs per rank under the kernel's sharding rule
     g = torch.Generator().manual_seed(0)
     qkv = [torch.randn(1, 8, 4, 16, generator=g) for _ in range(3)]
     sharded = DTensor.from_local(qkv[0][:, :, 2 * rank:2 * rank + 2], mp,
                                  [Shard(0), Shard(2)], run_check=False)
-    try:
-        flash_attention(sharded, sharded, sharded)
-    except ValueError as e:
-        assert "not a shard" in str(e)
-    else:
-        raise AssertionError("a sharded DTensor reached the kernel")
+    got = flash_attention(sharded, sharded, sharded)
+    assert isinstance(got, DTensor) and got.to_local().shape[2] == 2
+    np.testing.assert_allclose(
+        got.full_tensor().numpy(),
+        flash_attention(qkv[0], qkv[0], qkv[0]).numpy(), **COLL_TOL)
     bins = tsched.MeshBin.from_mesh(mp, {"model": 1})
     assert [b.label for b in bins] == ["mesh:1x1[0]", "mesh:1x1[1]"]
+    dist.destroy_process_group()
+
+
+def kernel_routes_main(rank: int, world: int, store: str) -> None:
+    """One spawned gloo rank over a (1, 2) ("data", "model") mesh: each
+    kernel wrapper on DTensors sharded as the dry-run shards them gives
+    the whole call's result (the plain versions on these CPU tensors,
+    run per rank by the custom ops' sharding rules):
+
+    * flash attention with 4 q heads sharded over the model axis and one
+      kv head replicated (MQA; fewer kv heads than ranks, llama4's case
+      at 16): each rank reads the kv head its q heads map to, forward and
+      gradients (the kv gradient summed over the ranks);
+    * decode attention likewise (q heads sharded, the cache replicated);
+    * the RG-LRU scan with its channels sharded, and its backward;
+    * MoE gating on token-sharded logits: taken whole, never a shard."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+
+    from repro_torch.kernels import moe_gating, rglru_scan
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    rng = np.random.default_rng(7)
+
+    def f(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    def dt(t, *places):
+        return distribute_tensor(t, mesh, list(places))
+
+    R, S0 = Replicate(), Shard(0)
+    # flash: q (B, S, H 4, D), k/v (B, S, K 1, D)
+    q, k, v, dout = f(2, 12, 4, 8), f(2, 12, 1, 8), f(2, 12, 1, 8), \
+        f(2, 12, 4, 8)
+    want = flash_attention(q, k, v)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*leaves).backward(dout)
+    dq, dk, dv = (t.grad for t in leaves)
+    dleaves = [dt(q, S0, Shard(2)).requires_grad_(True),
+               dt(k, S0, R).requires_grad_(True),
+               dt(v, S0, R).requires_grad_(True)]
+    with torch.no_grad():
+        got = flash_attention(*dleaves)
+    assert got.to_local().shape[2] == 2, got.placements
+    np.testing.assert_allclose(got.full_tensor().numpy(), want.numpy(),
+                               **COLL_TOL)
+    out = flash_attention(*dleaves)
+    out.backward(dt(dout, S0, Shard(2)))
+    for name, g_, w in zip("qkv", (t.grad for t in dleaves), (dq, dk, dv)):
+        np.testing.assert_allclose(g_.full_tensor().numpy(), w.numpy(),
+                                   err_msg=f"d{name}", **COLL_TOL)
+    # decode: q (B, H 4, D), cache (B, S, K 1, D), rows below valid_len
+    qd, kc, vc = f(2, 4, 8), f(2, 16, 1, 8), f(2, 16, 1, 8)
+    vl = torch.tensor([5, 16], dtype=torch.int32)
+    got = decode_attention(dt(qd, S0, Shard(1)), dt(kc, S0, R),
+                           dt(vc, S0, R), dt(vl, S0, R))
+    assert got.to_local().shape[1] == 2, got.placements
+    np.testing.assert_allclose(got.full_tensor().numpy(),
+                               decode_attention(qd, kc, vc, vl).numpy(),
+                               **COLL_TOL)
+    # the scan over channels, and its backward
+    x, a, h0, dy = f(2, 6, 8), torch.sigmoid(f(2, 6, 8)), f(2, 8), f(2, 6, 8)
+    C = Shard(2)
+    got = rglru_scan(dt(x, S0, C), dt(a, S0, C), dt(h0, S0, Shard(1)))
+    assert got.to_local().shape[2] == 4, got.placements
+    np.testing.assert_array_equal(got.full_tensor().numpy(),
+                                  rglru_scan(x, a, h0).numpy())
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, h0)]
+    rglru_scan(*leaves).backward(dy)
+    dleaves = [dt(x, S0, C).requires_grad_(True),
+               dt(a, S0, C).requires_grad_(True),
+               dt(h0, S0, Shard(1)).requires_grad_(True)]
+    rglru_scan(*dleaves).backward(dt(dy, S0, C))
+    for g_, t in zip(dleaves, leaves):
+        np.testing.assert_allclose(g_.grad.full_tensor().numpy(),
+                                   t.grad.numpy(), **COLL_TOL)
+    # gating: tokens sharded over the model axis; the capacity slots run
+    # over all 8 tokens, so the call is taken whole
+    logits = f(8, 4)
+    got = moe_gating(dt(logits, R, S0), top_k=2, capacity=2)
+    for g_, w in zip(got, moe_gating(logits, top_k=2, capacity=2)):
+        assert isinstance(g_, DTensor) and g_.to_local().shape[0] == 8
+        np.testing.assert_array_equal(g_.full_tensor().numpy(), w.numpy())
     dist.destroy_process_group()

@@ -1035,7 +1035,8 @@ def nccl_mesh(cuda):
     mesh = make_smoke_mesh(cuda)
     assert dist.get_backend() == "nccl"
     yield mesh
-    dist.destroy_process_group()
+    if dist.is_initialized():      # a dry-run test takes it down itself
+        dist.destroy_process_group()
 
 
 def test_mesh_bin_pulls_and_runs_on_the_card(cuda, nccl_mesh):
@@ -1162,3 +1163,98 @@ def test_moe_shard_map_at_world_size_one_matches_moe_local(cuda, nccl_mesh):
     want, _ = M._moe_local(cfg, p, x, torch.bfloat16)
     want = want + ffn_forward(cfg, p["shared"], x)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' custom ops and the dry-run's FLOP count on the card
+# ---------------------------------------------------------------------------
+def _op_cases(dev):
+    """(custom op name, the module's launch function, arguments, the
+    wrapper whose counter the launch adds to) for each kernel."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.moe_gating import ops as gops
+    from repro_torch.kernels.rglru_scan import ops as sops
+
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    q, dout = (_randn(rng, (1, 128, 4, 64), bf, dev) for _ in range(2))
+    k, v = (_randn(rng, (1, 128, 2, 64), bf, dev) for _ in range(2))
+    out, lse = flash_attention(q, k, v, with_lse=True)
+    x, dy, h = (_randn(rng, (1, 64, 256), torch.float32, dev)
+                for _ in range(3))
+    a = torch.sigmoid(_randn(rng, (1, 64, 256), torch.float32, dev))
+    h0 = _randn(rng, (1, 256), torch.float32, dev)
+    kc, vc = (_randn(rng, (2, 256, 2, 64), bf, dev) for _ in range(2))
+    vl = torch.tensor([17, 256], dtype=torch.int32, device=dev)
+    return {
+        "flash_attention": (fops._fwd_launch, (q, k, v, 0, 0, True, True,
+                                               0.125), flash_attention),
+        "flash_attention_bwd": (fops._bwd_launch,
+                                (q, k, v, out, dout, lse, 0, True, 0.125),
+                                flash_attention_bwd),
+        "decode_attention": (dops._decode_launch,
+                             (q[:, 0].contiguous(), kc, vc, vl, 0.125),
+                             decode_attention),
+        "rglru_scan": (sops._scan_launch, (x, a, h0), rglru_scan),
+        "rglru_scan_bwd": (sops._scan_bwd_launch, (dy, a, h, h0),
+                           rglru_scan_bwd),
+        "moe_gating": (gops._gating_launch,
+                       (_randn(rng, (64, 16), torch.float32, dev), 2, 8),
+                       moe_gating),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_attention_bwd",
+                                    "decode_attention", "rglru_scan",
+                                    "rglru_scan_bwd", "moe_gating"])
+def test_custom_op_launch_equals_the_direct_launch(cuda, kernel):
+    """The custom op on CUDA tensors is the kernel's launch: bit for bit
+    the launch function called directly, one count each."""
+    launch, args, wrapper = _op_cases(cuda)[kernel]
+    before = wrapper.launches
+    direct = launch(*args)
+    through = getattr(torch.ops.repro_torch, kernel)(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    direct = direct if isinstance(direct, tuple) else (direct,)
+    through = through if isinstance(through, tuple) else (through,)
+    assert len(direct) == len(through)
+    for d, t in zip(direct, through):
+        assert torch.equal(d, t)
+
+
+@pytest.mark.parametrize("arch,kind", [("minicpm-2b", "train"),
+                                       ("phi3-mini-3.8b", "decode")])
+def test_flop_counter_on_a_real_step_equals_the_dry_run(cuda, arch, kind):
+    """``FlopCounterMode`` over a reduced step run on the card counts
+    what the dry-run counts tracing the same step on fake tensors over a
+    1x1 fake mesh (the kernels by their formulas in both)."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import init_params
+    from repro_torch.training import init_train_state
+
+    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    shape = ShapeConfig("cell", 64, 2, kind)
+    rec = dryrun.run_cell(cfg, shape, mesh_shape=(1, 1),
+                          extra_overrides={"accum": 1})
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    fn = dryrun.step_fn(cfg, shape, accum=1)
+    if kind == "train":
+        args = (init_train_state(cfg, gen, cuda),
+                {"tokens": tokens, "labels": tokens})
+    else:
+        args = (init_params(dataclasses.replace(cfg, param_dtype="bfloat16"),
+                            gen, cuda), {"token": tokens[:, 0]},
+                dryrun.serve_caches(cfg, shape, device=cuda))
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    assert counter.get_total_flops() == int(rec["roofline"]["flops_per_chip"])

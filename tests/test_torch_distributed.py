@@ -943,8 +943,8 @@ def test_collectives_at_world_size_two(tmp_path):
     """Two spawned gloo ranks (a file store under tmp_path), each running
     ``_torch_dist_ranks.rank_main``: flash-decode, its hook in
     ``attn_forward`` and the expert-parallel MoE against their
-    single-device paths, a sharded DTensor refused by a kernel, mesh
-    bins of a tiled mesh.  The ranks run at a lower priority than the
+    single-device paths, a head-sharded DTensor run per rank by a
+    kernel's sharding rule, mesh bins of a tiled mesh.  The ranks run at a lower priority than the
     suite's workers (``nice``)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(Path(__file__).parent), str(Path(__file__).parents[1] / "src"),
