@@ -11,7 +11,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels: each kernel against its plain PyTorch version at the serving
    paths' shapes (phi3-mini, recurrentgemma-2b, llama4-maverick,
    deepseek-v2's MLA heads (q/k 192, v 128) and routing, qwen2-vl's
-   GQA and musicgen's D 64), the flash forward at a q offset (chunked
+   GQA and musicgen's D 64; phase 9's twins: reduced phi3-mini's prefill
+   and decode at D 16, the ≈100M train_lm's B 8 x S 128 at D 64), the
+   flash forward at a q offset (chunked
    prefill: phi3's and deepseek-v2's heads, yardstick SDPA with
    ``causal_lower_right``), with the scan's and the gating's launch
    shapes — every element within the tolerance of the
@@ -124,6 +126,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    function, in turns; then llama4-maverick x decode_32k traced on the
    fake 16x16 mesh, its record line printed.
 
+9. the paper's applications, through the example twins in
+   ``examples_torch/`` (each one's ``main`` with its flags) on ``cuda``:
+   (a) Listing 1's saxpy: y == 4 after the push; (b) 32 timing views
+   (host extract → pull → 4 logistic-regression GD steps, 512 x 64 →
+   push) at workers 1, 2, 4 and 8, every fitted model within rtol 1e-5,
+   atol 1e-6 of the same builder run by the port on a CPU bin, views/s
+   (three runs at each worker count, each checked, the median's rate);
+   (c) the propagation DAG at 10⁵ cells (2·10⁵ pull and kernel tasks,
+   fan-in up to 4) at workers 1, 4 and 8: every arrival bit-identical
+   to :func:`longest_path`, the build and run seconds, cells/s, wall µs
+   per task, the default simulation against the measurement; then one
+   more run at 1 worker with ``--profile``, its trace fitted
+   (``CostModel.fit``) and the same graph simulated under the fit
+   against that run (where the host's time per task goes:
+   ``repro_torch.launch.probe_executor``); (d) detailed placement, 8
+   iterations x 256 cells, at workers 1, 2 and 4: the objectives within
+   rtol 1e-6 of a CPU bin's, the MIS masks identical, iterations/s (as
+   in (b), three runs); (e) the serve_lm twin (reduced phi3-mini,
+   graphed decode) with its defaults and with ``--bins 2 --scheduler
+   balanced``: every request finishes, flash = layers x prefills, decode
+   = layers x decode steps, tok/s, TTFT and ITL; (f) the train_lm twin with ``--full`` (≈100M parameters, 300
+   steps, B 8 x 128, remat none) checkpointing every 50 steps to a
+   temporary directory: the loss falls, the latest checkpoint is step
+   300, flash = flash_bwd = 12 x 300, tok/s.
+
 Each kernel's bound in phase 3 comes from its cost formula in the port
 (``*_cost`` beside the wrapper, the custom op's FLOP and byte count).
 Phase 3 also holds the forward's log-sum-exp output and the two
@@ -145,7 +172,8 @@ batch, and round-trips a reduced train state through ``async_save`` and
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
-or without the repository's ``src/repro_torch`` beside this script.
+or without the repository's ``src/repro_torch`` and ``examples_torch``
+beside this script.
 """
 from __future__ import annotations
 
@@ -281,7 +309,13 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
             (1, 128, 128, 512, 192, 128, None, "bfloat16"),
             (1, 128, 128, 512, 192, 128, None, "float32"),
             (1, 28, 4, 512, 128, 128, None, "bfloat16"),
-            (1, 32, 32, 512, 64, 64, None, "bfloat16")]:
+            (1, 32, 32, 512, 64, 64, None, "bfloat16"),
+            # phase 9: the serve_lm twin's prefills (reduced phi3-mini: H =
+            # K = 4, D 16, prompts of 4-10 tokens) and the train_lm twin's
+            # forward (768 x 12: B 8, H = K = 12, S 128, D 64)
+            (1, 4, 4, 4, 16, 16, None, "bfloat16"),
+            (1, 4, 4, 10, 16, 16, None, "bfloat16"),
+            (8, 12, 12, 128, 64, 64, None, "bfloat16")]:
         dtype = getattr(torch, dt)
         q, k = (randn((B, S, n, D), dtype) for n in (H, K))
         v = randn((B, S, K, Dv), dtype)
@@ -425,7 +459,13 @@ def _decode_cases(torch, dev, randn, flush) -> dict:
             (1, 128, 128, 1024, 192, 128, [517], "bfloat16"),
             (1, 128, 128, 1024, 192, 128, [517], "float32"),
             (1, 28, 4, 1024, 128, 128, [517], "bfloat16"),
-            (1, 32, 32, 1024, 64, 64, [517], "bfloat16")]:
+            (1, 32, 32, 1024, 64, 64, [517], "bfloat16"),
+            # phase 9: the serve_lm twin's decode (reduced phi3-mini: H = K
+            # = 4, D 16, a slot's 128-row cache, up to 22 tokens), and four
+            # such rows in one batch
+            (1, 4, 4, 128, 16, 16, [5], "bfloat16"),
+            (1, 4, 4, 128, 16, 16, [22], "bfloat16"),
+            (4, 4, 4, 128, 16, 16, [128, 22, 5, 1], "bfloat16")]:
         dtype = getattr(torch, dt)
         q = randn((B, H, D), dtype)
         k, v = randn((B, S, K, D), dtype), randn((B, S, K, Dv), dtype)
@@ -562,8 +602,9 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
     """The forward's log-sum-exp output and the flash backward at the
     train paths' shapes (minicpm-2b: B 4, S 1024, H = K = 36, D 64;
     recurrentgemma-2b: B 1, S 3072, H 10, K 1, D 256, window 2048;
-    deepseek-v2's MLA: B 1, S 2048, H = K = 128, D 192, Dv 128; bf16)
-    and a small f32 case, against the plain versions on f32 copies of
+    deepseek-v2's MLA: B 1, S 2048, H = K = 128, D 192, Dv 128; phase
+    9's train_lm twin: B 8, S 128, H = K = 12, D 64; bf16) and a small
+    f32 case, against the plain versions on f32 copies of
     the same inputs.  Yardstick: SDPA's backward on the same q, k, v and
     dout (kv heads repeated to H), the backend named.  The bound counts
     the five products a flash backward needs (S again and dK, dQ over D;
@@ -587,6 +628,8 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
             ("recurrentgemma-2b", 1, 10, 1, 3072, 256, 256, 2048,
              "bfloat16"),
             ("deepseek-v2", 1, 128, 128, 2048, 192, 128, None, "bfloat16"),
+            ("train_lm twin --full", 8, 12, 12, 128, 64, 64, None,
+             "bfloat16"),
             ("small", 1, 8, 2, 512, 64, 64, None, "float32")]:
         dtype = getattr(torch, dt)
         q, k = (randn((B, S, n, D), dtype) for n in (H, K))
@@ -1767,16 +1810,303 @@ def _real_cell(torch, dev, cfg, shape, ov):
     return fn, (params, batch, caches)
 
 
+#: phase 9: the view pipelines at the builder's sizes (512 x 64, 4 GD
+#: steps); the propagation DAG at the scale the reference builder
+#: documents (10⁵ cells: 2·10⁵ pull and kernel tasks); detailed placement
+#: at the reference example's defaults (8 iterations x 256 cells)
+VIEWS = 32
+DAG_VIEWS, DAG_CELLS_PER_VIEW = 1000, 100
+PLACE_ITERS = 8
+#: the logistic-regression models fitted on the card against the CPU's
+#: (f32, TF32 off; the sums of the two matrix-vector products in another
+#: order), and the placement objective (a sum of 256 f32 row maxima)
+VIEW_RTOL, VIEW_ATOL = 1e-5, 1e-6
+PLACE_RTOL = 1e-6
+#: runs of each short application (views, placement) at each worker
+#: count: each is checked, each one's seconds printed, the median's rate
+#: reported (a run takes 10-400 ms with the executor's set-up, so one
+#: stall of the host moves a single run's rate many times over)
+APP_RUNS = 3
+TRAIN_CKPT_EVERY = 50
+
+
+def _examples():
+    """The port's example twins (``examples_torch/`` beside this script)."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import examples_torch.detailed_placement as detailed_placement
+    import examples_torch.quickstart as quickstart
+    import examples_torch.serve_lm as serve_lm
+    import examples_torch.timing_analysis as timing_analysis
+    import examples_torch.train_lm as train_lm
+    return quickstart, timing_analysis, detailed_placement, serve_lm, train_lm
+
+
+def longest_path(G):
+    """The plain longest path over a propagation DAG's own edges, in cell
+    order, independent of the executor: a cell's arrival is the largest
+    arrival among the kernels it depends on (0.0 for none) plus its
+    ``cost``, which is its delay.  Cells only depend on earlier cells.
+    Reads nothing but node types, edges and costs, so it takes either
+    package's graph."""
+    import numpy as np
+
+    cells = [n for n in G.nodes if n.type.value == "kernel"]
+    pos = {n.id: i for i, n in enumerate(cells)}
+    out = [0.0] * len(cells)
+    for i, n in enumerate(cells):
+        ups = [out[pos[d.id]] for d in n.dependents if d.id in pos]
+        out[i] = (max(ups) if ups else 0.0) + n.state["cost"]
+    return np.array(out)
+
+
+def saxpy_case(card: str) -> None:
+    """Phase 9 (a): Listing 1's saxpy twin on the card pushes y == 4."""
+    quickstart = _examples()[0]
+    _, y = quickstart.main(["--device", "cuda"])
+    if not (y == 4.0).all():
+        raise AssertionError("saxpy: y != 4 after the push")
+    print(f"[{card}] saxpy (Listing 1) on the card: y == 4.0 in all "
+          f"{y.size} elements after the push")
+
+
+def views_case(card: str) -> None:
+    """Phase 9 (b): 32 view pipelines (host extract → pull → logistic
+    regression, 4 GD steps → push) at workers 1, 2, 4 and 8,
+    ``APP_RUNS`` runs each; every fitted model against the same builder
+    run by the port on a CPU bin."""
+    import os
+
+    import numpy as np
+
+    ta = _examples()[1]
+    cores = os.cpu_count()
+    ref = np.stack(ta.main(["--views", str(VIEWS), "--workers", "4",
+                            "--device", "cpu"])[0]["models"])
+    for w in (1, 2, 4, 8):
+        runs = [ta.main(["--views", str(VIEWS), "--workers", str(w)])[0]
+                for _ in range(APP_RUNS)]
+        err = 0.0
+        for run in runs:
+            models = np.stack(run["models"])
+            err = max(err, float(np.abs(models - ref).max()))
+            if not (models != 0).any(axis=1).all() or not np.allclose(
+                    models, ref, rtol=VIEW_RTOL, atol=VIEW_ATOL):
+                raise AssertionError(f"timing views: the card's models "
+                                     f"differ from the CPU's (max diff {err})")
+        total = statistics.median(r["seconds"] for r in runs)
+        alone = statistics.median(r["run_seconds"] for r in runs)
+        print(f"[{card}] timing views, workers {w} ({cores} cores): {VIEWS} "
+              f"views, median of {APP_RUNS} runs {total} s = {VIEWS / total}"
+              f" views/s (the run alone {alone} s = {VIEWS / alone} views/s;"
+              f" runs {[r['seconds'] for r in runs]} s); simulated makespan "
+              f"{runs[0]['sim'].makespan} s; max |model - cpu model| {err}")
+
+
+def _dag_report(card: str, run: dict, label: str) -> None:
+    """Hold one propagation-DAG run's arrivals against
+    :func:`longest_path` bit for bit and print its numbers."""
+    import numpy as np
+
+    G = run["graph"]
+    t0 = time.perf_counter()
+    want = longest_path(G)
+    plain_s = time.perf_counter() - t0
+    got = run["arrivals"]
+    n, tasks = len(got), len(G)
+    same = got.dtype == want.dtype and np.array_equal(got, want)
+    sim = run["sim"].makespan
+    print(f"[{card}] propagation DAG{label}, workers {run['workers']}: "
+          f"{n} cells ({tasks} tasks) built in {run['build_seconds']} s, "
+          f"run in {run['run_seconds']} s = {n / run['run_seconds']} "
+          f"cells/s, {run['run_seconds'] / tasks * 1e6} wall µs per task "
+          f"({n / run['seconds']} cells/s with the executor's set-up, "
+          f"placement and simulation, {run['seconds']} s); simulated "
+          f"makespan {sim} s against {run['run_seconds']} s measured "
+          f"(x{sim / run['run_seconds']}); worst arrival {got.max()}; "
+          f"bit-identical to the plain longest path ({plain_s} s): {same}")
+    if not same:
+        bad = int(np.sum(got != want)) if got.shape == want.shape else n
+        raise AssertionError(f"propagation DAG: {bad} arrivals differ from "
+                             f"the plain longest path")
+
+
+def dag_case(dev, card: str) -> None:
+    """Phase 9 (c): the propagation DAG at 10⁵ cells at workers 1, 4 and
+    8, then the profile-guided loop: one more run at 1 worker with
+    ``--profile``, a ``CostModel`` fitted from its trace
+    (``CostModel.fit(load_trace(...))``) and the simulation of the same
+    graph and placement under it, against that run's measurement."""
+    import os
+
+    from repro_torch.sched import (CostModel, get_scheduler, load_trace,
+                                   simulate)
+
+    ta = _examples()[1]
+    argv = ["--views", str(DAG_VIEWS), "--cells-per-view",
+            str(DAG_CELLS_PER_VIEW)]
+    for w in (1, 4, 8):
+        run = ta.main(argv + ["--workers", str(w)])[0]
+        _dag_report(card, run, "")
+        del run
+        gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "dag_trace.json")
+        run = ta.main(argv + ["--workers", "1", "--profile", trace])[0]
+        _dag_report(card, run, " (profiled)")
+        G, devices = run["graph"], [dev]
+        model = CostModel.fit(load_trace(trace))
+        placement = get_scheduler(ta.DEFAULT_SCHED.policy).schedule(
+            G, devices)
+        sim = simulate(G, placement, devices, cost_model=model,
+                       host_workers=1).makespan
+    measured = run["profiler"].makespan()
+    print(f"[{card}] profile-guided loop, workers 1: the simulation under "
+          f"the CostModel fitted from the run's trace predicts {sim} s "
+          f"against {run['run_seconds']} s measured "
+          f"(x{sim / run['run_seconds']}; the trace's own makespan "
+          f"{measured} s)")
+    del run, G
+    gc.collect()
+
+
+def _mis_masks(G) -> list:
+    from repro_torch.core import KernelTask
+    return [KernelTask(n).host_result() for n in G.nodes
+            if n.name.startswith("mis[")]
+
+
+def placement_case(card: str) -> None:
+    """Phase 9 (d): detailed placement at 8 iterations x 256 cells at
+    workers 1, 2 and 4, ``APP_RUNS`` runs each: every run's objective
+    trace within PLACE_RTOL of a CPU bin's run of the same builder and
+    its MIS masks identical."""
+    import numpy as np
+
+    dp = _examples()[2]
+    ref = dp.main(["--device", "cpu"])
+    ref_masks = _mis_masks(ref["graph"])
+    for w in (1, 2, 4):
+        runs = [dp.main(["--workers", str(w)]) for _ in range(APP_RUNS)]
+        diff = 0.0
+        for run in runs:
+            masks = _mis_masks(run["graph"])
+            obj = np.array(run["objective"])
+            diff = max(diff, float(np.max(np.abs(obj / ref["objective"]
+                                                 - 1))))
+            same = len(masks) == len(ref_masks) == PLACE_ITERS and all(
+                np.array_equal(a, b) for a, b in zip(masks, ref_masks))
+            if not same or not np.allclose(obj, ref["objective"],
+                                           rtol=PLACE_RTOL, atol=0):
+                raise AssertionError("detailed placement: the card's run "
+                                     "differs from the CPU's")
+        dt = statistics.median(r["seconds"] for r in runs)
+        print(f"[{card}] detailed placement, workers {w}: {PLACE_ITERS} "
+              f"iterations, median of {APP_RUNS} runs {dt} s = "
+              f"{PLACE_ITERS / dt} iterations/s (runs "
+              f"{[r['seconds'] for r in runs]} s); simulated makespan "
+              f"{runs[0]['sim'].makespan} s; objective max rel diff to the "
+              f"cpu's {diff}; MIS masks identical in every run")
+
+
+def serve_lm_case(card: str) -> dict:
+    """Phase 9 (e): the serve_lm twin with its defaults and with ``--bins
+    2 --scheduler balanced``: every request finishes, flash = layers x
+    prefills and decode = layers x decode steps (the replays and the
+    engine's warm-up step) as phase 5 counts them.  Returns the counts by
+    run."""
+    from repro_torch.serving.graphs import DecodeGraphs
+
+    serve_lm = _examples()[3]
+    launches = {}
+    for argv in ([], ["--bins", "2", "--scheduler", "balanced"]):
+        _zero_counts()
+        eng, done, dt = serve_lm.main(argv)
+        counts = _read_counts()
+        s = eng.stats()
+        tokens = sum(len(r.generated) for r in done)
+        name = "serve_lm twin" + (" " + " ".join(argv) if argv else "")
+        print(f"[{card}] {name}: {len(done)} requests, {tokens} tokens in "
+              f"{dt} s = {tokens / dt} tok/s; ttft p50 {s['ttft_p50_s']} "
+              f"p99 {s['ttft_p99_s']} s; itl p50 {s['itl_p50_s']} p99 "
+              f"{s['itl_p99_s']} s; kv moves {s['kv_moves']}")
+        if not all(r.done for r in done) or s["preemptions"]:
+            raise AssertionError(f"{name}: a request did not finish or was "
+                                 f"preempted")
+        graphs = eng.decode_graphs
+        if graphs.replays != sum(len(r.generated) - 1 for r in done):
+            raise AssertionError(f"{name}: a decode step was not a replay")
+        layers = eng.cfg.n_layers
+        _check_counts(counts, {
+            "flash_attention": layers * len(done),
+            "decode_attention": layers * (graphs.replays
+                                          + DecodeGraphs.warmup_steps)})
+        for k, n in counts.items():
+            launches.setdefault(k, {})[name] = n
+        del eng, graphs
+        gc.collect()
+    return launches
+
+
+def train_lm_case(torch, dev, card: str) -> dict:
+    """Phase 9 (f): the train_lm twin with ``--full`` (≈100M parameters,
+    300 steps, B 8 x S 128) through its task graph: the loss falls, the
+    latest checkpoint is the last multiple of ``--ckpt-every``, flash =
+    flash_bwd = layers x steps (remat none).  Returns the counts."""
+    import math
+
+    train_lm = _examples()[4]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts()
+        out = train_lm.main(["--full", "--ckpt-dir", tmp, "--ckpt-every",
+                             str(TRAIN_CKPT_EVERY)])
+        counts = _read_counts()
+    losses, steps, layers = out["losses"], out["steps"], out["cfg"].n_layers
+    tokens = steps * 8 * 128
+    print(f"[{card}] train_lm twin --full ({out['cfg'].param_count()} "
+          f"params, {layers} layers): {steps} steps in {out['seconds']} s = "
+          f"{tokens / out['seconds']} tok/s; loss {losses[0]} -> "
+          f"{losses[-1]}; latest checkpoint step {out['latest_step']}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
+    if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
+        raise AssertionError("train_lm twin: the loss did not fall")
+    if out["latest_step"] != steps // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY:
+        raise AssertionError(f"train_lm twin: latest checkpoint step "
+                             f"{out['latest_step']}")
+    _check_counts(counts, {"flash_attention": layers * steps,
+                           "flash_attention_bwd": layers * steps})
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: {"train_lm twin --full": n} for k, n in counts.items()}
+
+
+def apps_phase(torch, dev, card: str) -> dict:
+    """Phase 9: the paper's applications through the port's example twins
+    (``examples_torch/``) on the card.  Returns the launch counts of the
+    serve_lm and train_lm runs, by path."""
+    saxpy_case(card)
+    views_case(card)
+    dag_case(dev, card)
+    placement_case(card)
+    launches = serve_lm_case(card)
+    for k, by_path in train_lm_case(torch, dev, card).items():
+        launches.setdefault(k, {}).update(by_path)
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch is missing beside this script",
-              file=sys.stderr)
-        return 1
+    for part in ("src/repro_torch", "examples_torch"):
+        if not (ROOT / part).is_dir():
+            print(f"chip_smoke: {part} is missing beside this script",
+                  file=sys.stderr)
+            return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1934,6 +2264,9 @@ def main() -> int:
         launches[k][f"{DSV2} expert-parallel MoE (world size 1)"] = n
     # the dry-run held against the card (phase 8)
     for k, by_path in prediction_phase(torch, dev, card).items():
+        launches.setdefault(k, {}).update(by_path)
+    # the paper's applications through the example twins (phase 9)
+    for k, by_path in apps_phase(torch, dev, card).items():
         launches.setdefault(k, {}).update(by_path)
 
     for name, row in chosen.items():

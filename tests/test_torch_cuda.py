@@ -1258,3 +1258,24 @@ def test_flop_counter_on_a_real_step_equals_the_dry_run(cuda, arch, kind):
     with FlopCounterMode(display=False) as counter:
         fn(*args)
     assert counter.get_total_flops() == int(rec["roofline"]["flops_per_chip"])
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_propagation_dag_on_the_card_equals_the_plain_longest_path(
+        cuda, workers):
+    """The timing-analysis twin's 10³-cell propagation DAG on ``cuda:0``
+    (each pull on the bin's copy stream, each arrival kernel on its
+    compute stream after its inputs' events): every arrival equals the
+    plain longest path over the graph's own edges, bit for bit."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from chip_smoke import longest_path
+    from examples_torch import timing_analysis
+
+    run = timing_analysis.main(["--views", "10", "--cells-per-view", "100",
+                                "--workers", str(workers)])[0]
+    assert run["arrivals"].shape == (1000,)
+    np.testing.assert_array_equal(run["arrivals"], longest_path(run["graph"]))

@@ -33,6 +33,7 @@ from repro_torch.serving import ServingEngine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = ROOT / "examples_torch"
 ARCH = "phi3-mini-3.8b"
 CPU = torch.device("cpu")
 PROMPTS = [np.arange(3 + 2 * i) * 7 % 256 for i in range(4)]
@@ -203,16 +204,30 @@ def _port_modules():
             .removesuffix(".__init__") for f in files]
 
 
+def _example_twins():
+    files = sorted(EXAMPLES.glob("*.py"))
+    assert files
+    return [f"examples_torch.{f.stem}" for f in files]
+
+
+#: what no module of the port or of its example twins may import: JAX,
+#: the JAX package, or the JAX package's benchmark folder
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
-    """Import every module of the port in a fresh interpreter: neither
-    ``jax`` nor ``repro`` may be loaded."""
+    """Import every module of the port and of the example twins in a
+    fresh interpreter: neither ``jax`` nor ``repro`` (nor the benchmark
+    folder's builders) may be loaded."""
     code = ("import importlib, sys\n"
-            f"for m in {_port_modules()!r}:\n"
+            f"for m in {_port_modules() + _example_twins()!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            f"             if m.split('.')[0] in {FORBIDDEN!r}\n"
+            "             or m in ('workloads', 'sched_bench'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -220,6 +235,7 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
+                                        *EXAMPLES.glob("*.py"),
                                         ROOT / "chip_smoke.py"]))
 def test_no_import_statement_names_jax_or_the_reference(path):
     tree = ast.parse((ROOT / path).read_text())
@@ -231,5 +247,5 @@ def test_no_import_statement_names_jax_or_the_reference(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+            assert name.split(".")[0] not in FORBIDDEN, \
                 f"{path}:{node.lineno} imports {name}"
