@@ -78,8 +78,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (the reference launcher's graph: host(data) → pull(batch) →
    kernel(step) → host(metrics)) and the Executor over ``cuda:0``, random
    weights from seed 0, ``SyntheticSource`` batches, f32 master weights,
-   bf16 compute, remat ``full``, eager steps, the launch counts zeroed
-   before and read after each:
+   bf16 compute, remat ``full``, the step a ``TrainStepGraph`` (eager
+   at step 1, then one captured CUDA graph replayed: the reference's
+   ``jax.jit``), the launch counts zeroed before and read after each
+   (step 1 counts its launches, each replay adds its graph's):
    - minicpm-2b, full width and depth (40 layers, tied 122753 vocab),
      WSD, B 4 × S 1024, 6 steps; per step flash = 80 (40 forwards and
      40 recomputed ones), flash_bwd = 40;
@@ -98,7 +100,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    step time past the first (warm-up) step, tokens/s, MFU against 989
    TFLOP/s (model FLOPs 6·N·T over the matmul parameters plus the
    attention and mLSTM products, formula printed, recomputation not
-   counted) and peak memory.
+   counted), peak memory and the capture's seconds.  Then, for each of
+   the five, the same call's A B B A of the eager step against the
+   graphed one, each run from one state (seed-0 params kept on the host,
+   fresh AdamW state) over the same batches, remat full: median step
+   past the first, tokens/s, MFU, ``max_memory_allocated`` and
+   ``max_memory_reserved`` of each run, capture seconds; fails unless
+   every run's losses, gradient norms and final params are bit-identical
+   to the first eager run's.
 
 7. distributed, held at world size 1: a one-rank NCCL group (in-memory
    store) and the 1x1 ``("data", "model")`` smoke mesh on the card, torn
@@ -121,7 +130,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    equal ``FlopCounterMode``'s count of the real step, the predicted
    peak is 0.95-1.15 of ``max_memory_allocated`` and the roofline bound
    at most 1.05 of the median step (decode_attention = 32, flash = 80
-   and flash_bwd = 40 in the real steps); the host time an eager decode
+   and flash_bwd = 40 in the real steps); the measured train step is
+   the eager one, and the same step replayed from a ``TrainStepGraph``
+   is timed beside it against the same bound; the host time an eager decode
    kernel call takes through its custom op and through its launch
    function, in turns; then llama4-maverick x decode_32k traced on the
    fake 16x16 mesh, its record line printed.
@@ -146,8 +157,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    in (b), three runs); (e) the serve_lm twin (reduced phi3-mini,
    graphed decode) with its defaults and with ``--bins 2 --scheduler
    balanced``: every request finishes, flash = layers x prefills, decode
-   = layers x decode steps, tok/s, TTFT and ITL; (f) the train_lm twin with ``--full`` (≈100M parameters, 300
-   steps, B 8 x 128, remat none) checkpointing every 50 steps to a
+   = layers x decode steps, tok/s, TTFT and ITL; (f) the train_lm twin
+   with ``--full`` (≈100M parameters, 300 steps, B 8 x 128, remat none;
+   its step a ``TrainStepGraph``) checkpointing every 50 steps to a
    temporary directory: the loss falls, the latest checkpoint is step
    300, flash = flash_bwd = 12 x 300, tok/s.
 
@@ -162,7 +174,8 @@ the build; ``rglru_scan_bwd`` at recurrentgemma's train shape in f32
 and bf16) against their plain versions.  Phase 4 also trains reduced
 minicpm-2b, recurrentgemma, llama4, deepseek-v2, xLSTM (canary stack)
 and qwen2-vl (patch embeddings in the batch) (f32 compute) for 3 steps
-on the card and on the CPU from one state (per-step losses within 1e-4,
+on the card (through a ``TrainStepGraph``: eager step 1, capture, two
+replays) and on the CPU from one state (per-step losses within 1e-4,
 params within 1e-4 + 1e-5·|p|, the bounds of
 ``tests/test_torch_training.py``; xLSTM's steps each from the CPU's
 state),
@@ -863,8 +876,10 @@ def train_reference_phase(torch, dev) -> None:
     xLSTM (its canary stack) and qwen2-vl (stub patch embeddings in every
     batch) (f32 compute, remat full) trained 3 steps from one state on the
     CPU (plain kernels) and on the card (forward and backward kernels, the
-    gating kernel with the recomputed gates): the same losses and params.
-    xLSTM's card steps start each from the CPU's state: its exponential
+    gating kernel with the recomputed gates; a TrainStepGraph: eager step
+    1, capture, two replays): the same losses and params.  xLSTM's card
+    steps start each from the CPU's state, copied into the tensors the
+    graph reads: its exponential
     gates turn a weight difference Adam's first step makes into more than
     the bound within three steps.  So each of its steps holds the loss,
     every gradient leaf at that state (TRAIN_GRAD_ATOL) and, past the
@@ -874,7 +889,8 @@ def train_reference_phase(torch, dev) -> None:
     W: 1.5e-4 after it, 2.6e-6 and 3.4e-7 after the next two; PERF.md
     §6).  Reduced
     phi3-mini
-    (bf16 compute) memorises one batch: loss down by 0.5 in 12 steps.  A
+    (bf16 compute, graphed) memorises one batch: loss down by 0.5 in 12
+    steps.  A
     reduced train state on the card survives async_save and restore bit
     for bit."""
     from repro_torch.configs import get_config, reduced
@@ -882,9 +898,9 @@ def train_reference_phase(torch, dev) -> None:
     from repro_torch.core import Executor
     from repro_torch.data import SyntheticSource
     from repro_torch.models.frontends import make_patch_embeds
-    from repro_torch.training import (AdamWConfig, checkpoint,
-                                      init_train_state, make_train_step,
-                                      wsd_schedule)
+    from repro_torch.training import (AdamWConfig, TrainStepGraph,
+                                      checkpoint, init_train_state,
+                                      make_train_step, wsd_schedule)
     from repro_torch.training.optimizer import leaves
 
     cpu = torch.device("cpu")
@@ -935,14 +951,16 @@ def train_reference_phase(torch, dev) -> None:
         devs = (cpu, dev)
         states = [_to(torch, _clone(torch, state0), d) for d in devs]
         steps = [make_train_step(cfg, opt, remat_policy="full") for _ in devs]
+        steps[1] = TrainStepGraph(steps[1], states[1])
         (cl, gl), excess, diff, gexcess = ([], []), [], [], []
         for i in range(3):
             batch = batch_of(cfg, i)
             if arch == XLSTM:
                 if i:                            # from the CPU's state
                     with torch.no_grad():
-                        states[1] = _to(torch, _clone(torch, states[0]),
-                                        dev)
+                        for x, y in zip(leaves(states[1]),
+                                        leaves(states[0])):
+                            x.copy_(y)
                 gexcess.append(grad_excess(cfg, [s["params"] for s in states],
                                            batch))
             for j, d in enumerate(devs):
@@ -965,8 +983,12 @@ def train_reference_phase(torch, dev) -> None:
                     f"{TRAIN_GRAD_ATOL}·max|g| + {TRAIN_LOSS_RTOL}·|g| per "
                     f"step {gexcess}; params held after steps 2-3)")
         print(f"reduced {arch} f32 train, 3 steps{held}: cpu losses {cl} "
-              f"cuda {gl}; max param diff {diff} (tol {TRAIN_PARAM_ATOL} + "
-              f"{TRAIN_PARAM_RTOL}·|p|)")
+              f"cuda {gl} (graphed: capture {steps[1].capture_seconds} s, "
+              f"{steps[1].replays} replays); max param diff {diff} (tol "
+              f"{TRAIN_PARAM_ATOL} + {TRAIN_PARAM_RTOL}·|p|)")
+        if steps[1].replays != 2:
+            raise AssertionError(f"{arch}: the card's steps 2-3 were not "
+                                 f"replays")
         if not loss_ok or max(excess) > 0 or max(gexcess, default=0) > 0:
             raise AssertionError(f"{arch}: training on the card differs "
                                  f"from the CPU")
@@ -974,9 +996,9 @@ def train_reference_phase(torch, dev) -> None:
     cfg = reduced(get_config(PHI3))
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
-    step = make_train_step(cfg, AdamWConfig(
+    step = TrainStepGraph(make_train_step(cfg, AdamWConfig(
         schedule=wsd_schedule(3e-4, 5, 50, 10), weight_decay=0.0),
-        remat_policy="none")
+        remat_policy="none"), state)
     b = SyntheticSource(cfg.vocab_size).batch(0, 4, 16)
     batch = {k: torch.from_numpy(x).to(dev) for k, x in b.items()}
     losses = []
@@ -1074,7 +1096,6 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
     step) and the chunked prefill's second chunk's counts (or None)."""
     import numpy as np
 
-    from repro_torch import kernels
     from repro_torch.launch.serve import serve
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill, reset_cache)
@@ -1096,11 +1117,10 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
         prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
     prompts[5] = prompts[0]                   # the same prompt, twice
 
-    for name in COUNTED:
-        getattr(kernels, name).launches = 0
+    _zero_counts()
     eng, done, seconds = serve(cfg, params, prompts, device=dev, slots=4,
                                max_seq=max_seq, max_new=max_new)
-    counts = {name: getattr(kernels, name).launches for name in COUNTED}
+    counts = _read_counts()
 
     stats = eng.stats()
     graphs = eng.decode_graphs
@@ -1201,7 +1221,6 @@ def chunked_prefill_phase(torch, dev, cfg, params, served,
     Returns the kernels' launches of the served dtype's second chunk."""
     import numpy as np
 
-    from repro_torch import kernels
     from repro_torch.models import (cast_params, decode_step, init_cache,
                                     prefill)
 
@@ -1216,11 +1235,10 @@ def chunked_prefill_phase(torch, dev, cfg, params, served,
         counts = None
         for i, chunk in enumerate(chunks):
             if counted and i == 1:
-                for name in COUNTED:
-                    getattr(kernels, name).launches = 0
+                _zero_counts()
             logits, caches = prefill(c, weights, chunk, caches)
             if counted and i == 1:
-                counts = {k: getattr(kernels, k).launches for k in COUNTED}
+                counts = _read_counts()
         toks, out = [int(logits[0].argmax())], [logits.float()]
         for _ in range(8):
             logits, caches = decode_step(
@@ -1370,24 +1388,23 @@ def train_phase(torch, dev, cfg, *, batch: int, seq: int, steps: int,
                 cut: str = "nothing cut") -> dict:
     """Train ``cfg`` (full width, random weights from seed 0) for
     ``steps`` steps through ``repro_torch.launch.train.train`` and the
-    Executor over ``dev``, remat full; losses and gradient norms finite.
-    Prints ``cut`` (how the config was cut to fit), the median step time
-    past the first step, tokens/s, MFU and peak memory; returns the
-    kernels' launch counts of the run."""
+    Executor over ``dev``, remat full (a TrainStepGraph: eager step 1,
+    then replays); losses and gradient norms finite.  Prints ``cut`` (how
+    the config was cut to fit), the median step time past the first
+    step, tokens/s, MFU, peak memory and the capture's seconds; returns
+    the kernels' launch counts of the run."""
     import math
 
-    from repro_torch import kernels
     from repro_torch.launch.train import train
     from repro_torch.training.optimizer import leaves
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    for name in COUNTED:
-        getattr(kernels, name).launches = 0
+    _zero_counts()
     out = train(cfg, steps=steps, batch=batch, seq=seq, device=dev,
                 remat="full")
-    counts = {name: getattr(kernels, name).launches for name in COUNTED}
+    counts = _read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     params = out["state"]["params"]
     n_params = sum(t.numel() for t in leaves(params))
@@ -1397,26 +1414,117 @@ def train_phase(torch, dev, cfg, *, batch: int, seq: int, steps: int,
                            else params["embed"].numel())
     losses, gnorms = out["losses"], out["grad_norms"]
     step_s = statistics.median(out["step_seconds"][1:])
+    capture = out["capture_seconds"]
     del out, params
     gc.collect()
     torch.cuda.empty_cache()
     tokens = batch * seq
-    mixer, formula = _mixer_flops(cfg, batch, seq)
-    flops = 6 * n_matmul * tokens + mixer
+    flops, formula = _model_flops(cfg, batch, seq, n_matmul)
     print(f"train {cfg.arch_id} full width ({cfg.n_layers} layers: "
           f"{cut}; {n_params} params, f32 master, {cfg.compute_dtype} "
-          f"compute, remat full), B {batch} x S {seq}, {steps} steps: losses "
-          f"{losses}; grad norms {gnorms}; median step (past the first) "
-          f"{step_s} s = {tokens / step_s} tokens/s; model FLOPs per step "
-          f"{flops} (6·N·T with N = {n_matmul} matmul params, plus the "
-          f"mixers' products {mixer} = {formula}; recomputation not "
-          f"counted) = MFU "
+          f"compute, remat full, graphed), B {batch} x S {seq}, {steps} "
+          f"steps: losses {losses}; grad norms {gnorms}; median step (past "
+          f"the first) {step_s} s = {tokens / step_s} tokens/s; model "
+          f"FLOPs per step {flops} ({formula}) = MFU "
           f"{flops / step_s / MFU_PEAK} of {MFU_PEAK / 1e12:.0f} TFLOP/s; "
-          f"max_memory_allocated {peak} B")
+          f"max_memory_allocated {peak} B; capture {capture} s")
     if not all(map(math.isfinite, losses + gnorms)):
         raise AssertionError(f"{cfg.arch_id}: a loss or grad norm is not "
                              f"finite")
     return counts
+
+
+def _model_flops(cfg, batch: int, seq: int, n_matmul: int
+                 ) -> tuple[int, str]:
+    """A train step's model FLOPs and their formula: 6·N·T over the
+    matmul parameters plus the mixers' products; recomputation not
+    counted."""
+    mixer, formula = _mixer_flops(cfg, batch, seq)
+    return (6 * n_matmul * batch * seq + mixer,
+            f"6·N·T with N = {n_matmul} matmul params, plus the mixers' "
+            f"products {mixer} = {formula}; recomputation not counted")
+
+
+def step_ab(torch, dev, cfg, *, batch: int, seq: int, steps: int) -> None:
+    """The same call's A B B A of ``cfg``'s train step, eager (A) against
+    a TrainStepGraph (B: eager step 1, capture, replays), remat full.
+    Every run starts from one state: the seed-0 params drawn once and
+    kept on the host, a fresh AdamW state; and takes the same ``steps``
+    SyntheticSource batches.  A step's wall runs from a synchronised
+    start to its loss and gradient norm on the host.  Prints, for each
+    kind, the median step past the first over its two runs, tokens/s,
+    MFU, each run's ``max_memory_allocated`` and ``max_memory_reserved``,
+    and the graphs' capture seconds; fails unless every run's losses,
+    gradient norms and final params are bit-identical to the first's."""
+    from repro_torch.data import SyntheticSource
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, TrainStepGraph,
+                                      cosine_schedule, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import leaves
+
+    cpu = torch.device("cpu")
+    gc.collect()
+    torch.cuda.empty_cache()
+    host = _to(torch, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), cpu)
+    n_params = sum(t.numel() for t in leaves(host))
+    n_matmul = n_params - (0 if cfg.tie_embeddings else host["embed"].numel())
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in SyntheticSource(
+        cfg.vocab_size, seed=0).batch(i, batch, seq).items()}
+        for i in range(steps)]
+    opt = AdamWConfig(schedule=cosine_schedule(3e-4, 100, 1000))
+    first, rows = None, {"eager": [], "graphed": []}
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = _to(torch, host, dev)
+        state = {"params": params, "opt": init_opt_state(params)}
+        step = make_train_step(cfg, opt, remat_policy="full")
+        if kind == "graphed":
+            step = TrainStepGraph(step, state)
+        seconds, metrics = [], []
+        for b in batches:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            metrics.append(torch.stack([m["total_loss"],
+                                        m["grad_norm"]]).tolist())
+            seconds.append(time.perf_counter() - t0)
+        final = [t.detach().cpu() for t in leaves(state["params"])]
+        if first is None:
+            first = (metrics, final)
+        elif metrics != first[0] or not all(
+                torch.equal(a, b) for a, b in zip(final, first[1])):
+            raise AssertionError(f"{cfg.arch_id}: a {kind} run's losses, "
+                                 f"grad norms or params differ from the "
+                                 f"first eager run's")
+        rows[kind].append({
+            "seconds": seconds, "metrics": metrics,
+            "allocated": torch.cuda.max_memory_allocated(dev),
+            "reserved": torch.cuda.max_memory_reserved(dev),
+            "capture": getattr(step, "capture_seconds", None)})
+        del state, params, step, final, m
+    del first, host, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops, _ = _model_flops(cfg, batch, seq, n_matmul)
+    parts = []
+    for kind, runs in rows.items():
+        med = statistics.median(t for r in runs for t in r["seconds"][1:])
+        parts.append(
+            f"{kind}: median step {med} s = {batch * seq / med} tokens/s, "
+            f"MFU {flops / med / MFU_PEAK}, per run step s "
+            f"{[r['seconds'] for r in runs]}, max_memory_allocated "
+            f"{[r['allocated'] for r in runs]} B, max_memory_reserved "
+            f"{[r['reserved'] for r in runs]} B"
+            + (f", capture {[r['capture'] for r in runs]} s"
+               if kind == "graphed" else ""))
+    print(f"train step A/B {cfg.arch_id}, B {batch} x S {seq}, {steps} steps "
+          f"a run, runs eager, graphed, graphed, eager from one state: "
+          f"losses and grad norms {rows['eager'][0]['metrics']} and final "
+          f"params bit-identical in all four; " + "; ".join(parts))
 
 
 def distributed_phase(torch, dev, card: str) -> dict:
@@ -1456,7 +1564,7 @@ def _zero_counts():
 
 def _read_counts() -> dict:
     from repro_torch import kernels
-    return {name: getattr(kernels, name).launches for name in COUNTED}
+    return kernels.launch_counts(COUNTED)
 
 
 def pipeline_case(torch, dev, card: str, mesh) -> dict:
@@ -1667,8 +1775,10 @@ def prediction_phase(torch, dev, card: str) -> dict:
     MEMORY_BAND (the memory the process held before the cell, the
     cuBLAS workspaces among it, is added to the prediction and printed)
     and the bound over the measured median step is at most
-    MAX_ROOFLINE_SHARE.  Then what the custom op adds to an eager call
-    (:func:`_dispatch_cost`).  (b) llama4-maverick x decode_32k on the
+    MAX_ROOFLINE_SHARE.  The measured step is the eager one (the function
+    the dry-run traces); the train step replayed from a TrainStepGraph is
+    timed after it and held to the same bound.  Then what the custom op
+    adds to an eager call (:func:`_dispatch_cost`).  (b) llama4-maverick x decode_32k on the
     fake 16x16 mesh as the CLI traces it (MoE, GQA with kv heads replicated
     over the model axis); its record line.  Returns the launch counts of
     the real steps, by path."""
@@ -1707,6 +1817,8 @@ def prediction_phase(torch, dev, card: str) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         step = statistics.median(times)
+        graphed = _graphed_median(torch, fn, args, reps) \
+            if shape.kind == "train" else None
         roof = rec["roofline"]
         want = rec["memory"]["per_device_total"] + base
         t_bound = max(roof["t_compute_s"], roof["t_memory_s"],
@@ -1722,8 +1834,16 @@ def prediction_phase(torch, dev, card: str) -> dict:
               f"{base}), max_memory_allocated {peak}, ratio {want / peak}")
         print(f"  roofline: t_bound {t_bound} s ({roof['bottleneck']}; "
               f"t_compute {roof['t_compute_s']}, t_memory "
-              f"{roof['t_memory_s']}), median step {step} s of {reps}, "
-              f"share {t_bound / step}")
+              f"{roof['t_memory_s']}), measured step (eager) median "
+              f"{step} s of {reps}, share {t_bound / step}")
+        if graphed is not None:
+            print(f"  graphed step (TrainStepGraph, capture "
+                  f"{graphed[1]} s): median {graphed[0]} s of {reps} "
+                  f"replays, share {t_bound / graphed[0]}")
+            if t_bound / graphed[0] > MAX_ROOFLINE_SHARE:
+                raise AssertionError(f"{tag}: the bound {t_bound} s is "
+                                     f"{t_bound / graphed[0]} of the "
+                                     f"graphed step: a count is wrong")
         if int(roof["flops_per_chip"]) != flops:
             raise AssertionError(f"{tag}: the dry-run counts "
                                  f"{roof['flops_per_chip']} FLOPs, the card "
@@ -1749,6 +1869,24 @@ def prediction_phase(torch, dev, card: str) -> dict:
     print(f"  fits {rec['fits']}, memory {rec['memory']}, collectives "
           f"{rec['collectives']['counts']}")
     return launches
+
+
+def _graphed_median(torch, fn, args, reps: int) -> tuple[float, float]:
+    """The train step ``fn(state, batch)`` through a TrainStepGraph: one
+    call (eager step and capture), then ``reps`` replays each ended by a
+    synchronise.  Returns (median replay seconds, capture seconds)."""
+    from repro_torch.training import TrainStepGraph
+
+    graph = TrainStepGraph(fn, args[0])
+    graph(*args)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        graph(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), graph.capture_seconds
 
 
 def _dispatch_cost(torch, dev, card: str, calls: int = 200) -> None:
@@ -2050,7 +2188,8 @@ def serve_lm_case(card: str) -> dict:
 
 def train_lm_case(torch, dev, card: str) -> dict:
     """Phase 9 (f): the train_lm twin with ``--full`` (≈100M parameters,
-    300 steps, B 8 x S 128) through its task graph: the loss falls, the
+    300 steps, B 8 x S 128) through its task graph, its step a
+    TrainStepGraph (one eager step, 299 replays): the loss falls, the
     latest checkpoint is the last multiple of ``--ckpt-every``, flash =
     flash_bwd = layers x steps (remat none).  Returns the counts."""
     import math
@@ -2068,7 +2207,10 @@ def train_lm_case(torch, dev, card: str) -> dict:
           f"params, {layers} layers): {steps} steps in {out['seconds']} s = "
           f"{tokens / out['seconds']} tok/s; loss {losses[0]} -> "
           f"{losses[-1]}; latest checkpoint step {out['latest_step']}; "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
+          f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B; "
+          f"step graph captured in {out['capture_seconds']} s")
+    if out["capture_seconds"] is None:
+        raise AssertionError("train_lm twin: the step was not graphed")
     if not all(map(math.isfinite, losses)) or losses[-1] >= losses[0]:
         raise AssertionError("train_lm twin: the loss did not fall")
     if out["latest_step"] != steps // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY:
@@ -2220,6 +2362,7 @@ def main() -> int:
         _check_counts(counts, {k: n * steps for k, n in per_step.items()})
         for k, n in counts.items():
             launches.setdefault(k, {})[f"{name} train"] = n
+        step_ab(torch, dev, cfg, batch=batch, seq=seq, steps=steps)
 
     # minicpm-2b: 40 attention layers, each forward once and recomputed
     # once (remat full), one backward

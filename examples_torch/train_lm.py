@@ -9,9 +9,12 @@ Defaults are a ~20M model and 50 steps; ``--full`` runs the ~100M /
     PYTHONPATH=src python examples_torch/train_lm.py [--full] [--steps N]
     PYTHONPATH=src python examples_torch/train_lm.py --device cpu --steps 5
 
-The step is the port's eager ``make_train_step(..., remat_policy="none")``
+The step is the port's ``make_train_step(..., remat_policy="none")``
 (f32 master weights, bf16 compute, the hand-written flash kernels
-forward and backward on the card); it is not compiled.  Each
+forward and backward on the card).  On the card it is compiled as the
+reference's ``jax.jit`` compiles it: a ``TrainStepGraph`` runs step 1
+eagerly, captures one step in a CUDA graph and replays it for every
+later step; on the CPU it stays eager.  Each
 checkpoint's snapshot is taken inside the step's kernel task, on the
 step's stream, so its copies are queued before the next step updates
 the state in place; the files are written by a host task on the same
@@ -20,7 +23,8 @@ executor while the next steps run.  The metric sink reads the loss with
 (the executor's streams do not wait on the default stream).
 
 :func:`main` returns the per-step losses, the run's seconds, the latest
-checkpoint step and the final state.
+checkpoint step, the final state and the step graph's capture seconds
+(None on the CPU).
 """
 import argparse
 import dataclasses
@@ -37,7 +41,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import LayerGroup  # noqa: E402
 from repro_torch.core import Executor, Heteroflow  # noqa: E402
 from repro_torch.data import Pipeline, PipelineConfig, SyntheticSource  # noqa: E402
-from repro_torch.training import (AdamWConfig, checkpoint, init_train_state,  # noqa: E402
+from repro_torch.training import (AdamWConfig, TrainStepGraph,  # noqa: E402
+                                  checkpoint, init_train_state,
                                   make_train_step, wsd_schedule)
 
 
@@ -84,6 +89,8 @@ def main(argv=None):
         cfg, torch.Generator(device=device).manual_seed(0), device)
     opt = AdamWConfig(schedule=wsd_schedule(3e-4, 20, steps - 40, 20))
     step_fn = make_train_step(cfg, opt, remat_policy="none")
+    if device.type == "cuda":
+        step_fn = TrainStepGraph(step_fn, state)     # the jax.jit
 
     pipe = Pipeline(SyntheticSource(cfg.vocab_size),
                     PipelineConfig(batch=args.batch, seq=args.seq))
@@ -107,7 +114,9 @@ def main(argv=None):
             # the next train steps (paper §III-A.3)
             ckpt_futs.append(checkpoint.async_save(
                 ex, args.ckpt_dir, n, box["state"]))
-        return metrics["total_loss"]
+        # a copy: replayed from the graph, the loss is a static buffer that
+        # the next replay may overwrite before the sink reads it
+        return metrics["total_loss"].clone()
 
     kernel = hf.kernel(do_step, pull_t, pull_l, name="train_step")
 
@@ -134,7 +143,8 @@ def main(argv=None):
           f"checkpoints at {args.ckpt_dir} (latest step {latest})")
     assert losses[-1] < losses[0], "loss should decrease"
     return {"losses": losses, "seconds": dt, "latest_step": latest,
-            "steps": steps, "cfg": cfg, "state": box["state"]}
+            "steps": steps, "cfg": cfg, "state": box["state"],
+            "capture_seconds": getattr(step_fn, "capture_seconds", None)}
 
 
 if __name__ == "__main__":

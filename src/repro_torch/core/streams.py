@@ -139,33 +139,33 @@ def is_dtensor(x: Any) -> bool:
 
 
 class _MeshScope:
-    """DTensor implicit replication while any live-mesh task runs.  The
-    switch is process-wide in torch (one flag read by DTensor's
-    dispatcher), so the scopes of concurrent worker threads are counted
-    and the flag stays on until the last one exits.  It changes nothing
-    for a plain-tensor op: only an op that mixes a DTensor with a plain
-    tensor reads it."""
+    """DTensor implicit replication while a live-mesh task runs on this
+    thread.  torch keeps the switch per thread (one flag read by DTensor's
+    dispatcher in the calling thread), so every worker thread that enters
+    a mesh scope turns it on for itself; nested scopes on one thread are
+    counted, and the outermost exit turns it off.  It changes nothing for
+    a plain-tensor op: only an op that mixes a DTensor with a plain tensor
+    reads it."""
 
-    _lock = threading.Lock()
-    _depth = 0
-    _ctx: Any = None
+    _local = threading.local()
 
     def __enter__(self):
-        with _MeshScope._lock:
-            if _MeshScope._depth == 0:
-                from torch.distributed.tensor.experimental import \
-                    implicit_replication
-                _MeshScope._ctx = implicit_replication()
-                _MeshScope._ctx.__enter__()
-            _MeshScope._depth += 1
+        local = _MeshScope._local
+        if not getattr(local, "depth", 0):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            local.ctx = implicit_replication()
+            local.ctx.__enter__()
+            local.depth = 0
+        local.depth += 1
         return self
 
     def __exit__(self, *exc):
-        with _MeshScope._lock:
-            _MeshScope._depth -= 1
-            if _MeshScope._depth == 0:
-                _MeshScope._ctx.__exit__(None, None, None)
-                _MeshScope._ctx = None
+        local = _MeshScope._local
+        local.depth -= 1
+        if not local.depth:
+            local.ctx.__exit__(None, None, None)
+            local.ctx = None
         return False
 
 

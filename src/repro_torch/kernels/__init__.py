@@ -14,7 +14,14 @@ implementation gives the outputs' shapes for a fake tensor
 ``_cost``) counts the call's FLOPs and bytes, and its sharding rule
 (``_dtensor``) runs it per rank on DTensors.  ``_build`` compiles the
 sources with ``nvcc`` for ``sm_90a`` at first use.
+
+A wrapper counts a launch when its Python code runs, which a CUDA
+graph's replay does not do: :class:`GraphLaunches` takes back what a
+capture counted (a capture launches nothing) and adds it again at every
+replay.
 """
+import contextlib
+
 from .flash_attention.ops import (flash_attention, flash_attention_bwd,
                                   flash_attention_bwd_plain,
                                   flash_attention_plain)
@@ -23,8 +30,49 @@ from .rglru_scan.ops import (rglru_scan, rglru_scan_bwd, rglru_scan_bwd_plain,
                              rglru_scan_plain)
 from .moe_gating.ops import moe_gating, moe_gating_plain
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
+__all__ = ["COUNTED", "GraphLaunches", "launch_counts", "flash_attention",
+           "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "decode_attention",
            "decode_attention_plain", "rglru_scan", "rglru_scan_plain",
            "rglru_scan_bwd", "rglru_scan_bwd_plain", "moe_gating",
            "moe_gating_plain"]
+
+#: the wrappers that count their kernels' launches (``<wrapper>.launches``)
+COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
+           "flash_attention_bwd", "rglru_scan_bwd")
+
+
+def launch_counts(names=COUNTED) -> dict[str, int]:
+    """Each named wrapper's launch counter."""
+    return {name: globals()[name].launches for name in names}
+
+
+class GraphLaunches:
+    """The kernel launches a captured CUDA graph holds, by wrapper.
+
+    ``with counts.capture(): <capture>`` records what the wrappers counted
+    while the graph was captured into ``per_replay`` and takes it back
+    from the counters; ``counts.replay(graph)`` replays the graph and adds
+    ``per_replay`` to them."""
+
+    def __init__(self, names=COUNTED):
+        self.names = tuple(names)
+        self.per_replay = dict.fromkeys(self.names, 0)
+
+    @contextlib.contextmanager
+    def capture(self):
+        before = launch_counts(self.names)
+        try:
+            yield self
+        finally:
+            after = launch_counts(self.names)
+            self.per_replay = {n: after[n] - before[n] for n in self.names}
+            self._add(-1)
+
+    def replay(self, graph) -> None:
+        graph.replay()
+        self._add(1)
+
+    def _add(self, sign: int) -> None:
+        for name, n in self.per_replay.items():
+            globals()[name].launches += sign * n

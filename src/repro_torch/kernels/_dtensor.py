@@ -55,14 +55,23 @@ def route(t) -> str:
     plain eager code: the launch function the custom op's CUDA
     implementation calls, without the dispatcher (16-44 µs of host time a
     call on the H100 machine; dispatched eager flash calls were also seen
-    to break a later CUDA-graph capture there, PERF.md §6)."""
-    import torch
+    to break a later CUDA-graph capture there, PERF.md §6).  Selective
+    checkpointing's own modes (remat ``"dots"``) count as plain eager
+    code: they keep only the matmuls, so a kernel they do not see is
+    recomputed, as they would have it, and a captured step under them
+    launches directly too."""
     from torch._subclasses.fake_tensor import is_fake
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    from torch.utils.checkpoint import (_CachedTorchDispatchMode,
+                                        _CachingTorchDispatchMode)
     if is_dtensor(t) or is_fake(t) or t.device.type == "meta":
         return "op"
     if t.device.type == "cpu":
         return "plain"
-    return "op" if torch._C._len_torch_dispatch_stack() else "launch"
+    sac = (_CachedTorchDispatchMode, _CachingTorchDispatchMode)
+    return "op" if any(not isinstance(m, sac)
+                       for m in _get_current_dispatch_mode_stack()) \
+        else "launch"
 
 
 def sharding_rule(op) -> Callable:

@@ -16,7 +16,6 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from .._build import function
 from .._cost import register_cost
@@ -71,7 +70,10 @@ def moe_gating_plain(logits: torch.Tensor, *, top_k: int, capacity: int):
     gates, eids = top[:, :top_k], order[:, :top_k]
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     flat = eids.reshape(-1)
-    rank = (F.one_hot(flat, E).cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+    # one-hot by comparison: F.one_hot reads a CPU tensor's indices back
+    # to check them (a host sync inside the train step)
+    hot = (flat[:, None] == torch.arange(E, device=flat.device)).long()
+    rank = (hot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
     keep = rank < capacity
     slots = flat * capacity + torch.where(keep, rank, 0)
     return (eids.to(torch.int32), gates,

@@ -9,6 +9,9 @@ pull(tokens, labels) → kernel(train step) → host(metrics), iterated by
 an :class:`Executor` over the device with ``run_until``; checkpoints are
 written through :func:`checkpoint.async_save`.  Weights are random, drawn
 from a seeded ``torch.Generator``; batches come from ``SyntheticSource``.
+On CUDA the step is a :class:`TrainStepGraph` (the reference's
+``jax.jit``): eager at step 1, then one captured graph replayed; on the
+CPU it is the eager step.
 WSD for minicpm-2b, cosine otherwise.  As the reference's launcher,
 :func:`main` runs under the sharding rules over the 1×1 smoke mesh on the
 device (a one-rank process group: NCCL on the card, gloo on the CPU);
@@ -28,8 +31,9 @@ from ..data import Pipeline, PipelineConfig, SyntheticSource
 from ..distributed import use_sharding_rules
 from ..distributed.sharding import axis_sizes
 from ..models.transformer import REMAT_POLICIES
-from ..training import (AdamWConfig, checkpoint, cosine_schedule,
-                        init_train_state, make_train_step, wsd_schedule)
+from ..training import (AdamWConfig, TrainStepGraph, checkpoint,
+                        cosine_schedule, init_train_state, make_train_step,
+                        wsd_schedule)
 from .mesh import make_smoke_mesh
 
 __all__ = ["main", "train"]
@@ -41,9 +45,10 @@ def train(cfg, *, steps: int, batch: int, seq: int, device: torch.device,
           seed: int = 0) -> dict:
     """Train ``cfg`` for ``steps`` steps on ``device`` through the task
     graph.  Returns ``{"losses", "grad_norms", "step_seconds", "seconds",
-    "state"}``: per-step total loss and gradient norm (floats),
-    each step's wall time from the kernel task's start to its loss on the
-    host, the whole run's seconds and the final state."""
+    "state", "capture_seconds"}``: per-step total loss and gradient norm
+    (floats), each step's wall time from the kernel task's start to its
+    loss on the host, the whole run's seconds, the final state and the
+    step graph's capture seconds (None on the CPU)."""
     sched = (wsd_schedule(3e-4, 100, max(steps - 200, 100), 100)
              if cfg.arch_id == "minicpm-2b"
              else cosine_schedule(3e-4, 100, max(steps, 1000)))
@@ -55,6 +60,10 @@ def train(cfg, *, steps: int, batch: int, seq: int, device: torch.device,
     if resume and ckpt_dir and checkpoint.latest_step(ckpt_dir) is not None:
         state, start = checkpoint.restore(ckpt_dir, state)
         print(f"resumed from step {start}", flush=True)
+    if device.type == "cuda":
+        # the reference's jax.jit: captured after the restore, so the
+        # graph reads the tensors the loop updates
+        step_fn = TrainStepGraph(step_fn, state)
 
     pipe = Pipeline(SyntheticSource(cfg.vocab_size, seed=seed),
                     PipelineConfig(batch=batch, seq=seq))
@@ -101,7 +110,8 @@ def train(cfg, *, steps: int, batch: int, seq: int, device: torch.device,
     seconds = time.perf_counter() - t0
     return {"losses": losses, "grad_norms": grad_norms,
             "step_seconds": step_seconds, "seconds": seconds,
-            "state": box["state"]}
+            "state": box["state"],
+            "capture_seconds": getattr(step_fn, "capture_seconds", None)}
 
 
 def main(argv=None) -> int:

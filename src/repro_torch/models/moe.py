@@ -126,7 +126,10 @@ def _load_balance_aux(cfg, logits, eids):
     only when asked (training)."""
     m = cfg.moe
     probs = torch.softmax(logits, dim=-1)
-    density = F.one_hot(eids[:, 0].long(), m.n_experts).float().mean(0)
+    # one-hot by comparison: F.one_hot reads a CPU tensor's indices back
+    # to check them (a host sync inside the train step)
+    experts = torch.arange(m.n_experts, device=eids.device)
+    density = (eids[:, :1].long() == experts).float().mean(0)
     return m.aux_loss_coef * m.n_experts * torch.sum(density * probs.mean(0))
 
 

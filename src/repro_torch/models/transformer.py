@@ -338,9 +338,12 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
                       if remat_policy == "dots" else None)
         kw = {"context_fn": context_fn} if context_fn else {}
         for lp in layers:
+            # the step draws no random number: no RNG state to keep, and
+            # none is read inside a CUDA-graph capture
             x, aux = checkpoint(_super_block, cfg, g, lp, x,
                                 positions, auxes is not None,
-                                use_reentrant=False, **kw)
+                                use_reentrant=False, preserve_rng_state=False,
+                                **kw)
             if aux is not None:
                 auxes.append(aux)
         return x, None

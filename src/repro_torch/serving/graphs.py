@@ -13,8 +13,9 @@ share one memory pool; they are replayed one at a time.
 
 A kernel wrapper counts a launch when its Python code runs, which a
 replay does not do: at capture each graph records how many launches of
-each kernel it holds (taking back what the capture counted, since a
-capture launches nothing), and every replay adds them.
+each kernel it holds (``kernels.GraphLaunches``: what the capture
+counted is taken back, since a capture launches nothing), and every
+replay adds them.
 
 Nothing here falls back to the eager step: a capture or replay error
 raises.
@@ -30,12 +31,9 @@ from ..models import transformer
 
 __all__ = ["DecodeGraph", "DecodeGraphs"]
 
-#: the kernel wrappers whose launch counters a replay advances
+#: the kernel wrappers a decode step can launch: the launch counters a
+#: replay advances
 COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating")
-
-
-def _launches() -> dict[str, int]:
-    return {name: getattr(kernels, name).launches for name in COUNTED}
 
 
 class DecodeGraph:
@@ -45,26 +43,22 @@ class DecodeGraph:
         self.token = torch.zeros((1,), dtype=torch.long, device=device)
         self.pos = torch.zeros((1,), dtype=torch.long, device=device)
         self.graph = torch.cuda.CUDAGraph()
-        before = _launches()
+        self.counts = kernels.GraphLaunches(COUNTED)
         # thread-local: the executor's workers query events while this
         # thread captures
-        with torch.cuda.graph(self.graph, pool=pool,
-                              capture_error_mode="thread_local"):
+        with self.counts.capture(), torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode="thread_local"):
             self.logits, _ = transformer.decode_step(
                 cfg, params, self.token, caches, pos=self.pos)
-        after = _launches()
-        self.launches = {n: after[n] - before[n] for n in COUNTED}
-        for name, n in self.launches.items():
-            getattr(kernels, name).launches -= n
+        #: launches of each kernel per replay
+        self.launches = self.counts.per_replay
 
     def __call__(self, token: int, pos: int) -> torch.Tensor:
         """Replay on the current stream for ``token`` at cache position
         ``pos``; returns the static (1, V) logits buffer."""
         self.token.fill_(token)
         self.pos.fill_(pos)
-        self.graph.replay()
-        for name, n in self.launches.items():
-            getattr(kernels, name).launches += n
+        self.counts.replay(self.graph)
         return self.logits
 
 

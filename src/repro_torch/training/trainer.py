@@ -1,13 +1,16 @@
 """The train step: loss + grad + AdamW, microbatch accumulation, remat.
 
 The port of ``repro.training.trainer``.  ``make_train_step(cfg, opt)``
-returns ``step(state, batch) -> (state, metrics)`` that runs eagerly (no
-CUDA graph, no ``torch.compile``) and updates ``state`` IN PLACE: the
-f32 master parameters and the optimizer state are the same tensors after
-the step.  As the reference does, the step casts the whole float tree to
-``cfg.compute_dtype`` before the forward; the gradients come back to the
-f32 masters through the casts and are accumulated over ``accum``
-microbatches in f32 (``.grad``), then averaged.  Every family the
+returns ``step(state, batch) -> (state, metrics)`` that runs eagerly and
+updates ``state`` IN PLACE: the f32 master parameters and the optimizer
+state are the same tensors after the step.  It reads no host scalar and
+makes no host tensor, so it can be captured whole in a CUDA graph
+(:class:`~.graphs.TrainStepGraph`, the counterpart of the reference's
+``jax.jit`` of this function).  As the reference does, the step casts
+the whole float tree to ``cfg.compute_dtype`` before the forward; the
+gradients come back to the f32 masters through the casts and are
+accumulated over ``accum`` microbatches in f32 (``.grad``), then
+averaged.  Every family the
 reference trains is trained: attention (GQA, MLA), RG-LRU, mLSTM and
 sLSTM mixers, dense and MoE FFNs, and batches that carry a stub
 frontend's ``extra_embeds``.
@@ -94,10 +97,11 @@ def make_train_step(cfg: ModelConfig, opt: opt_lib.AdamWConfig, *,
             loss = loss / accum
             for p in masters:
                 p.grad.div_(accum)
+            # a fill on the device: torch.tensor(...) would copy from
+            # pageable host memory, which a CUDA-graph capture refuses
             metrics = {"loss": loss,
                        "aux_loss": torch.zeros_like(loss),
-                       "tokens": torch.tensor(float(tokens.numel()),
-                                              device=loss.device)}
+                       "tokens": loss.new_full((), float(tokens.numel()))}
         grads = [p.grad for p in masters]
         _, _, opt_metrics = opt_lib.adamw_update(opt, grads, masters,
                                                  state["opt"])

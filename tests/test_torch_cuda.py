@@ -1021,6 +1021,152 @@ def test_remat_policies_give_the_same_grads_on_the_card(cuda, arch):
             _close(grads[k], g0[k], torch.float32)
 
 
+# ---------------------------------------------------------------------------
+# the train step captured in a CUDA graph (training/graphs.py)
+# ---------------------------------------------------------------------------
+def _train_batches(cfg, n, device, B=4, S=16):
+    """``n`` SyntheticSource batches (seeds 0..n-1) on ``device``; for the
+    vision stub each also carries patch embeddings drawn from its seed."""
+    from repro_torch.data import SyntheticSource
+    from repro_torch.models.frontends import make_patch_embeds
+    out = []
+    for i in range(n):
+        b = {k: torch.from_numpy(v).to(device) for k, v in
+             SyntheticSource(cfg.vocab_size, seed=i).batch(0, B, S).items()}
+        if cfg.frontend == "vision_stub":
+            b["extra_embeds"] = make_patch_embeds(
+                torch.Generator().manual_seed(i), B, cfg.n_visual_tokens,
+                cfg.d_model, dtype=torch.float32).to(device)
+        out.append(b)
+    return out
+
+
+def _same_state(a, b):
+    from repro_torch.training.checkpoint import _flatten
+    fa, fb = _flatten(a), _flatten(b)
+    assert fa.keys() == fb.keys()
+    for k in fa:
+        assert torch.equal(fa[k], fb[k]), k
+
+
+#: the reduced families the CPU tests train against the reference
+TRAIN_ARCHS = ["minicpm-2b", "recurrentgemma-2b", "llama4-maverick-400b-a17b",
+               "deepseek-v2-236b", "xlstm-1.3b", "qwen2-vl-7b"]
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_graphed_train_step_equals_eager_step(cuda, arch, accum, remat):
+    """Four steps of each reduced trained family (f32 compute; xLSTM's
+    canary stack; qwen2-vl with patch embeddings) from one state: eager,
+    and through a TrainStepGraph replayed on a side stream (as the
+    executor's compute stream) after its eager first step.  Losses,
+    metrics, params, m, v and step are bit-identical, and each replay
+    advances the six launch counters by the launches of one eager step."""
+    import repro_torch.kernels as K
+    from repro_torch.training import (AdamWConfig, TrainStepGraph,
+                                      init_train_state, make_train_step,
+                                      wsd_schedule)
+    cfg = _reduced_f32(arch)
+    state0 = init_train_state(cfg, torch.Generator().manual_seed(0),
+                              torch.device("cpu"))
+    opt = AdamWConfig(schedule=wsd_schedule(1e-3, 1, 10, 5))
+    batches = _train_batches(cfg, 4, cuda)
+
+    def make():
+        return make_train_step(cfg, opt, remat_policy=remat, accum=accum)
+
+    eager, step, want, per_step = _to(state0, cuda), make(), [], []
+    for b in batches:
+        before = K.launch_counts()
+        eager, m = step(eager, b)
+        after = K.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        want.append({k: v.clone() for k, v in m.items()})
+    state = _to(state0, cuda)
+    graph = TrainStepGraph(make(), state)
+    got = []
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        for i, b in enumerate(batches):
+            before = K.launch_counts()
+            out, m = graph(state, b)
+            after = K.launch_counts()
+            assert out is state
+            assert {k: after[k] - before[k] for k in after} == per_step[i]
+            got.append({k: v.clone() for k, v in m.items()})
+    torch.cuda.synchronize(cuda)
+    assert graph.replays == 3 and graph.counts.per_replay == per_step[0]
+    assert graph.capture_seconds > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), (i, k)
+    _same_state(state, eager)
+    assert int(state["opt"]["step"]) == 4
+
+
+def test_graphed_train_step_refuses_another_batch_shape_or_state(cuda):
+    """No retrace and no fallback: a batch of another shape, or another
+    state than the graph was built on, raises."""
+    from repro_torch.training import (AdamWConfig, TrainStepGraph,
+                                      cosine_schedule, init_train_state,
+                                      make_train_step)
+    cfg = _reduced_f32("minicpm-2b")
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    graph = TrainStepGraph(make_train_step(cfg, AdamWConfig(
+        schedule=cosine_schedule(1e-3, 1, 10)), remat_policy="none"), state)
+    (b,) = _train_batches(cfg, 1, cuda)
+    graph(state, b)
+    graph(state, b)
+    with pytest.raises(ValueError, match="batch"):
+        graph(state, {k: v[:2] for k, v in b.items()})
+    with pytest.raises(ValueError, match="another state"):
+        graph(dict(state), b)
+    assert graph.replays == 1
+
+
+def test_train_launcher_graphs_resume_like_an_uninterrupted_run(cuda,
+                                                                 tmp_path):
+    """``launch.train.train`` on the card (a TrainStepGraph under the
+    Executor): 2 steps with a checkpoint at step 2, then a resumed run of
+    2 more, whose graph is captured over the restored tensors.  The
+    losses and the final state equal an uninterrupted eager run of 4
+    steps over the batches the two runs read (the launcher's pipeline
+    starts at batch 0 again after a resume, as the reference's does)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticSource
+    from repro_torch.launch.train import train
+    from repro_torch.training import (AdamWConfig, checkpoint,
+                                      init_train_state, make_train_step,
+                                      wsd_schedule)
+    cfg = reduced(get_config("minicpm-2b"))
+    ck = str(tmp_path / "ck")
+    kw = dict(batch=2, seq=16, device=cuda, remat="none", ckpt_dir=ck,
+              ckpt_every=2)
+    first = train(cfg, steps=2, **kw)
+    assert checkpoint.latest_step(ck) == 2
+    resumed = train(cfg, steps=2, resume=True, **kw)
+    assert first["capture_seconds"] and resumed["capture_seconds"]
+    assert checkpoint.latest_step(ck) == 4
+
+    state = init_train_state(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             cuda)
+    step = make_train_step(cfg, AdamWConfig(
+        schedule=wsd_schedule(3e-4, 100, 100, 100)), remat_policy="none")
+    losses = []
+    for i in (0, 1, 0, 1):
+        b = SyntheticSource(cfg.vocab_size, seed=0).batch(i, 2, 16)
+        state, m = step(state, {k: torch.from_numpy(v).to(cuda)
+                                for k, v in b.items()})
+        losses.append(float(m["total_loss"]))
+    assert first["losses"] + resumed["losses"] == losses
+    _same_state(resumed["state"], state)
+
+
 
 # ---------------------------------------------------------------------------
 # the distributed layer at world size 1: a one-rank NCCL group and the 1x1

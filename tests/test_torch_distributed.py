@@ -416,6 +416,47 @@ def test_mesh_bins_from_a_live_mesh():
         tsched.MeshBin("m", {"data": 2}).put_target()
 
 
+def test_mesh_scope_turns_implicit_replication_on_in_every_thread():
+    """torch keeps DTensor's implicit-replication switch per thread: two
+    worker threads inside mesh scopes at once each see it on (a second
+    thread that found the first's scope open saw it off, and a DTensor
+    times a plain tensor raised there), a nested scope keeps it on, and
+    each thread's outermost exit turns it off again."""
+    import threading
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.streams import _MeshScope
+
+    def flag():
+        return DTensor._op_dispatcher._allow_implicit_replication
+
+    entered, done, seen = threading.Event(), threading.Event(), {}
+
+    def first():
+        with _MeshScope():
+            entered.set()
+            done.wait(timeout=30)
+            seen["first, after the second left"] = flag()
+        seen["first, after"] = flag()
+
+    worker = threading.Thread(target=first)
+    worker.start()
+    assert entered.wait(timeout=30)
+    with _MeshScope():
+        with _MeshScope():
+            seen["second, nested"] = flag()
+        seen["second"] = flag()
+    seen["second, after"] = flag()
+    done.set()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
+    assert seen == {"second, nested": True, "second": True,
+                    "second, after": False,
+                    "first, after the second left": True,
+                    "first, after": False}
+
+
 def test_tree_pull_carries_every_leaf_to_its_bin():
     """A pull of a dict (a stage's weights): every leaf — numpy and bf16
     CPU tensors, lists nested — lands on the bin; on a mesh bin each as

@@ -486,6 +486,95 @@ def test_bf16_compute_trains_the_router():
     assert not torch.equal(router.detach(), before)
 
 
+# ---------------------------------------------------------------------------
+# a step that can be captured in a CUDA graph (training/graphs.py)
+# ---------------------------------------------------------------------------
+class _NoHostSync(torch.utils._python_dispatch.TorchDispatchMode):
+    """Raises on what a CUDA-graph capture of the step refuses and the CPU
+    can show: a read of a device value on the host (``.item()``,
+    ``float()``, a check of indices), a data-dependent shape (``nonzero``,
+    boolean masks) and a tensor made from host data (``torch.tensor``: a
+    copy from pageable memory on the card)."""
+
+    REFUSED = {torch.ops.aten._local_scalar_dense.default,
+               torch.ops.aten.nonzero.default,
+               torch.ops.aten.lift_fresh.default}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.REFUSED:
+            raise AssertionError(f"the train step calls {func}, which a "
+                                 f"CUDA-graph capture refuses")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_train_step_can_be_captured(arch, accum, remat):
+    """Three eager steps of every trained family (the vision stub with
+    patch embeddings in the batch) read no device value on the host and
+    make no host tensor, and every state tensor keeps its address: a
+    CUDA graph captured over the step reads those addresses.  (On the
+    card, tests/test_torch_cuda.py holds the replayed step to the eager
+    one bit for bit.)"""
+    jcfg, tcfg = _cfgs(arch)
+    state = init_train_state(tcfg, torch.Generator().manual_seed(0), CPU)
+    ptrs = {k: t.data_ptr() for k, t in _flatten(state).items()}
+    step = make_train_step(tcfg, AdamWConfig(
+        schedule=wsd_schedule(1e-3, 1, 10, 5)), remat_policy=remat,
+        accum=accum)
+    for i in range(3):
+        batch = _torch_batch(_batch(jcfg.vocab_size, seed=i, cfg=jcfg))
+        with _NoHostSync():
+            got, m = step(state, batch)
+        assert got is state
+        assert all(np.isfinite(float(v)) for v in m.values())
+    assert {k: t.data_ptr() for k, t in _flatten(state).items()} == ptrs
+    assert all(p.grad is None for p in topt.leaves(state["params"]))
+    assert int(state["opt"]["step"]) == 3
+
+
+def test_graph_launches_take_back_a_capture_and_add_each_replay():
+    """``kernels.GraphLaunches``: what the wrappers count while a graph is
+    captured (a capture launches nothing) is taken back from the six
+    counters and becomes the graph's launches per replay; each replay of
+    the graph (here a stand-in with ``replay()``) adds them."""
+    from repro_torch import kernels
+
+    class FakeGraph:
+        replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    assert set(kernels.COUNTED) == {
+        "flash_attention", "flash_attention_bwd", "decode_attention",
+        "rglru_scan", "rglru_scan_bwd", "moe_gating"}
+    start = kernels.launch_counts()
+    counts = kernels.GraphLaunches()
+    with counts.capture():
+        kernels.flash_attention.launches += 4
+        kernels.flash_attention_bwd.launches += 2
+        kernels.rglru_scan_bwd.launches += 1
+    assert kernels.launch_counts() == start
+    assert counts.per_replay == dict.fromkeys(kernels.COUNTED, 0) | {
+        "flash_attention": 4, "flash_attention_bwd": 2, "rglru_scan_bwd": 1}
+    graph = FakeGraph()
+    for n in (1, 2, 3):
+        counts.replay(graph)
+        assert graph.replays == n
+        assert kernels.launch_counts() == {
+            k: start[k] + n * counts.per_replay[k] for k in start}
+    decode = kernels.GraphLaunches(["decode_attention", "moe_gating"])
+    with decode.capture():
+        kernels.decode_attention.launches += 3
+        kernels.flash_attention.launches += 1       # not watched: kept
+    assert decode.per_replay == {"decode_attention": 3, "moe_gating": 0}
+    kernels.flash_attention.launches -= 1
+    for name, n in start.items():                   # leave them as found
+        getattr(kernels, name).launches = n
+
+
 @pytest.mark.slow
 @pytest.mark.parametrize("accum", [1, 2])
 def test_memorization_drives_loss_down(accum):
