@@ -15,7 +15,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and decode at D 16, the ≈100M train_lm's B 8 x S 128 at D 64), the
    flash forward at a q offset (chunked
    prefill: phi3's and deepseek-v2's heads, yardstick SDPA with
-   ``causal_lower_right``), with the scan's and the gating's launch
+   ``causal_lower_right``) and at a device q offset (a chunk of the
+   ladder prefill: phi3's heads, 256 rows at 256 over a 1024-row cache,
+   bf16, bit-identical to the int offset over the sliced cache, the same
+   yardstick on that view), with the scan's and the gating's launch
    shapes — every element within the tolerance of the
    plain version's f32 result (one bf16 rounding for a bf16 output; MoE
    gating's experts, slots and keep identical, gates within 1e-6), median
@@ -30,14 +33,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    twice), deepseek-v2, qwen2-vl and musicgen served on the card and on
    the CPU (plain kernels) give the same greedy tokens, and on the card
    the decode step replayed from its CUDA graph gives the eager step's
-   tokens and logits; qwen2-vl's prefill of stub patch embeddings at
-   distinct (t, h, w) positions gives the CPU's logits;
+   tokens and logits, and for the families the ladder serves (phi3,
+   xLSTM, qwen2-vl, musicgen) the prompt replayed as a ladder of graphed
+   chunks (32 + 4 + 1) and the graphed steps give the CPU's tokens and
+   logits; qwen2-vl's prefill of stub patch embeddings at distinct (t, h,
+   w) positions gives the CPU's logits;
 5. serve, seven paths, each through ``repro_torch.launch.serve.serve``
    and the Executor over ``cuda:0`` with random weights from seed 0, 4
    slots and 16 new tokens per request, every decode step replayed from
    its slot's CUDA graph, the launch counts zeroed before and read after
    each (a decode step counts the engine's one eager warm-up step and
-   every replay, which adds the launches its graph holds):
+   every replay, which adds the launches its graph holds).  phi3,
+   xlstm-1.3b, qwen2-vl and musicgen prefill every request as a ladder of
+   graphed chunks (``PrefillGraphs``, rungs 2-512; a chunk of one token
+   is a replay of the slot's decode graph), and there "prefills" counts
+   the chunks of two tokens or more and the ladder's eager warm-up
+   chunks (one per rung), "decode steps" also the chunks of one:
    - phi3-mini-3.8b, full width and depth: 6 requests of 64-512 prompt
      tokens, max_seq 1024; flash = 32 × prefills, decode = 32 × decode
      steps;
@@ -72,7 +83,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against the one-shot prefill at f32 compute (LOGIT_ATOL, the same
    tokens) and printed at the served bf16; the second chunk's launches
    (flash = the attention layers, through the q offset) are a path of
-   their own.  Each path frees its weights before the next.
+   their own.  For the four ladder families, on the served engine, the
+   same call's A B B A of the eager one-shot prefill (A) against the
+   ladder (B): the engine's TTFT p50/p99, tokens/s and peak memory over
+   the 6 requests, the median prefill alone on one slot, the ladder's
+   chunks per prompt and capture seconds, each graphed prefill's device
+   time against its bytes bound (chunks × the weights a pass reads), and
+   every graphed prefill bit-identical (logits and caches) to the eager
+   chunks of its plan; then at f32 compute (xLSTM on its canary stack) a
+   437-token prompt's ladder (256 + 128 + 32 + 16 + 4 + 1) and 8 graphed
+   steps within LOGIT_ATOL of the one-shot prefill and its eager steps,
+   the same greedy tokens.  Each path frees its weights before the next.
 
 6. train, five paths, each through ``repro_torch.launch.train.train``
    (the reference launcher's graph: host(data) → pull(batch) →
@@ -155,9 +176,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    iterations x 256 cells, at workers 1, 2 and 4: the objectives within
    rtol 1e-6 of a CPU bin's, the MIS masks identical, iterations/s (as
    in (b), three runs); (e) the serve_lm twin (reduced phi3-mini,
-   graphed decode) with its defaults and with ``--bins 2 --scheduler
-   balanced``: every request finishes, flash = layers x prefills, decode
-   = layers x decode steps, tok/s, TTFT and ITL; (f) the train_lm twin
+   graphed decode and ladder prefill) with its defaults and with
+   ``--bins 2 --scheduler balanced``: every request finishes, every
+   prefill is replayed, flash = layers x the ladder's chunks of two
+   tokens or more (and its warm-up chunks, one per rung), decode =
+   layers x (decode steps and one-token chunks), tok/s, TTFT and ITL;
+   (f) the train_lm twin
    with ``--full`` (≈100M parameters, 300 steps, B 8 x 128, remat none;
    its step a ``TrainStepGraph``) checkpointing every 50 steps to a
    temporary directory: the loss falls, the latest checkpoint is step
@@ -193,6 +217,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -290,6 +315,7 @@ def kernel_phase(torch, dev, logs: dict) -> dict:
     chosen = {}
     chosen.update(_flash_cases(torch, dev, randn, flush))
     _flash_offset_cases(torch, dev, randn, flush)
+    _flash_device_offset_case(torch, dev, randn, flush)
     chosen.update(_decode_cases(torch, dev, randn, flush))
     chosen.update(_rglru_cases(torch, dev, randn, flush))
     chosen.update(_gating_cases(torch, dev, randn, flush))
@@ -419,6 +445,57 @@ def _flash_offset_cases(torch, dev, randn, flush) -> None:
               f"Sk={Sk} D={D} Dv={Dv} {dt}: {err} {ATOL} {RTOL[dt]} {ms} "
               f"{plain} {lib} (SDPA causal_lower_right, {backend}) {bound} "
               f"{bound_by}")
+
+
+def _flash_device_offset_case(torch, dev, randn, flush) -> None:
+    """The forward at a device q offset (a chunk of the ladder prefill:
+    the offset read from a (1,) int64 on the card, k and v the cache's
+    whole rows, zero past the chunk as after a reset): phi3's heads, a
+    rung of 256 at offset 256 over a 1024-row cache, bf16, against the
+    plain version at the same device offset and bit for bit against the
+    kernel at the int offset over the cache's first 512 rows.  Bound:
+    the cost formula over the keys the chunk sees (the first 512 rows);
+    yardstick: SDPA with ``causal_lower_right`` on that sliced view."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cost
+
+    H = K = 32
+    D, Sq, off, rows, dt = 96, 256, 256, 1024, "bfloat16"
+    dtype, Sk = getattr(torch, dt), off + Sq
+    q = randn((1, Sq, H, D), dtype)
+    kc = torch.zeros((1, rows, K, D), dtype=dtype, device=dev)
+    vc = torch.zeros((1, rows, K, D), dtype=dtype, device=dev)
+    kc[:, :Sk] = randn((1, Sk, K, D), dtype)
+    vc[:, :Sk] = randn((1, Sk, K, D), dtype)
+    at = torch.full((1,), off, dtype=torch.long, device=dev)
+    scale = D ** -0.5
+    out = flash_attention(q, kc, vc, scale=scale, q_offset=at)
+    ref = flash_attention_plain(q.float(), kc.float(), vc.float(),
+                                scale=scale, q_offset=at)
+    err = _check(torch, "flash_attention at a device q offset", out, ref, dt)
+    del ref
+    k, v = kc[:, :Sk], vc[:, :Sk]
+    if not torch.equal(out, flash_attention(q, k, v, scale=scale,
+                                            q_offset=off)):
+        raise AssertionError("flash_attention at a device q offset differs "
+                             "from the int offset over the sliced cache")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bias = causal_lower_right(Sq, Sk)
+    lib = _median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias, scale=scale), flush)
+    bound, bound_by = _bounds(*flash_attention_cost(q, k, v, q_offset=off),
+                              dt)
+    ms = _median_ms(torch, lambda: flash_attention(
+        q, kc, vc, scale=scale, q_offset=at), flush)
+    plain = _median_ms(torch, lambda: flash_attention_plain(
+        q, kc, vc, scale=scale, q_offset=at), flush)
+    print(f"  flash_attention device q_offset={off} B=1 H={H} K={K} Sq={Sq} "
+          f"cache={rows} D={D} {dt}: {err} {ATOL} {RTOL[dt]} {ms} {plain} "
+          f"{lib} (SDPA causal_lower_right on the first {Sk} rows) {bound} "
+          f"{bound_by}; bit-identical to the int offset over them")
 
 
 #: SDPA's backends, in the order tried where one must take Dv != D
@@ -806,13 +883,17 @@ def reference_phase(torch, dev) -> None:
     sLSTM block, twice): its reduced 16-block stack turns a last-bit
     difference into logit differences past a greedy margin.  On the card,
     a decode step replayed from its CUDA graph gives the eager step's
-    tokens and logits bit for bit.  qwen2-vl also prefills stub patch
-    embeddings at distinct (t, h, w) positions, card against CPU."""
+    tokens and logits bit for bit, and where the family takes the ladder
+    the prompt replayed from its ``PrefillGraphs`` and the graphed steps
+    give the CPU's tokens, logits within LOGIT_ATOL.  qwen2-vl also
+    prefills stub patch embeddings at distinct (t, h, w) positions, card
+    against CPU."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import LayerGroup
     from repro_torch.models import (cast_params, decode_step, init_cache,
                                     init_params, prefill, reset_cache)
-    from repro_torch.serving.graphs import DecodeGraphs
+    from repro_torch.models.transformer import takes_ladder
+    from repro_torch.serving.graphs import DecodeGraphs, PrefillGraphs
 
     cpu = torch.device("cpu")
     canary = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
@@ -857,6 +938,24 @@ def reference_phase(torch, dev) -> None:
         if toks != gt or diff != 0.0:
             raise AssertionError(f"{arch}: the graphed decode steps differ "
                                  f"from the eager ones")
+        if takes_ladder(cfg):
+            # the prompt as the engine serves it on the card: a ladder of
+            # graphed chunks (37 = 32 + 4 + 1 on 64 rows)
+            ladder = PrefillGraphs(cfg, p, [caches], graphs, 64, dev)
+            reset_cache(cfg, caches)
+            logits = ladder.prefill(0, prompt)
+            toks, all_logits = [int(logits[0].argmax())], [logits.cpu()]
+            for n in range(8):
+                logits = graphs.step(0, toks[-1], len(prompt) + n)
+                toks.append(int(logits[0].argmax()))
+                all_logits.append(logits.cpu())
+            err = float((torch.cat(all_logits) - cl).abs().max())
+            print(f"  ladder prefill {ladder.plan(len(prompt))} on the card, "
+                  f"graphed: tokens {toks}; max logit diff to the cpu's "
+                  f"one-shot prefill and steps {err}")
+            if toks != ct or err > LOGIT_ATOL:
+                raise AssertionError(f"{arch}: the card's ladder prefill "
+                                     f"differs from the CPU's prefill")
         if arch == QWEN2VL:
             _patch_prefill(torch, cfg, params, prompt, dev)
 
@@ -1081,7 +1180,8 @@ MFU_PEAK = PEAK_FLOPS["bfloat16"]
 
 
 def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
-                chunked: bool = False) -> tuple[dict, int, int, dict]:
+                chunked: bool = False,
+                ladder_f32: bool = False) -> tuple[dict, int, int, dict]:
     """Serve ``cfg`` (full width, random weights from seed 0) through
     ``serve()`` and the Executor over ``dev``: prompts of ``lengths``
     tokens (the sixth gets the first one's prompt; for the audio stub,
@@ -1091,12 +1191,18 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
     request ``long_prompt``, default the second) and decode step give
     finite logits of the vocabulary's width, the prefill's token the
     engine's.  ``chunked``: then :func:`chunked_prefill_phase` on the same
-    weights.  Returns the kernels' launch counts of the serving run, its
-    prefills, its decode steps (the replays and the engine's warm-up
-    step) and the chunked prefill's second chunk's counts (or None)."""
+    weights.  A family the ladder serves (``transformer.takes_ladder``)
+    prefills every request from its ``PrefillGraphs``; then
+    :func:`ladder_ab` on the same engine, and with ``ladder_f32``
+    :func:`ladder_f32_phase` on the same weights.  Returns the kernels' launch counts of the serving run, its
+    prefill passes that launch the flash kernel (the requests, or the
+    ladder's chunks of two tokens or more and its eager warm-up chunks,
+    one per rung), its decode steps (the replays, the engine's warm-up
+    step and the ladder's one-token chunks) and the chunked prefill's second chunk's
+    counts (or None)."""
     import numpy as np
 
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import graph_report, serve
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill, reset_cache)
     from repro_torch.models.frontends import make_audio_tokens
@@ -1151,9 +1257,23 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
     if graphs.replays != steps:
         raise AssertionError(f"{graphs.replays} replays for {steps} decode "
                              f"steps")
+    print(graph_report(eng))
+    ladder = eng.prefill_graphs
+    flash_passes, ones = len(done), 0
+    if ladder is not None:
+        print(f"prefill ladder: chunks per prompt "
+              f"{[len(ladder.plan(len(q))) for q in prompts]} "
+              f"({[ladder.plan(len(q)) for q in prompts]}); launches per "
+              f"replay {ladder.slots[0][ladder.top].launches} (every rung)")
+        if ladder.prefills != len(done):
+            raise AssertionError(f"{ladder.prefills} ladder prefills for "
+                                 f"{len(done)} requests")
+        flash_passes = ladder.replays + ladder.warmup_chunks
+        ones = ladder.decode_chunks
+        ladder_ab(torch, dev, eng, prompts, max_new)
 
     p = eng.params
-    del eng, graphs
+    del eng, graphs, ladder
     gc.collect()
     i = 1 if long_prompt is None else long_prompt
     caches = init_cache(cfg, 1, max_seq, device=dev)
@@ -1187,11 +1307,206 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
     _decode_step_split(torch, cfg, p, int(logits2[0].argmax()), eager,
                        graphs, prompt.shape[1] + 1, dev)
     chunk = None
+    del graphs, caches, eager
+    gc.collect()
     if chunked:
-        del graphs, caches, eager
-        gc.collect()
         chunk = chunked_prefill_phase(torch, dev, cfg, params, p, max_seq)
-    return counts, len(done), steps + DecodeGraphs.warmup_steps, chunk
+    if ladder_f32:
+        ladder_f32_phase(torch, dev, cfg, params, max_seq)
+    return (counts, flash_passes, steps + DecodeGraphs.warmup_steps + ones,
+            chunk)
+
+
+def _nearest_rank(xs, pct: float) -> float:
+    """The engine's percentile rule (``obs`` histograms): nearest rank."""
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(len(xs) * pct / 100) - 1)]
+
+
+def ladder_ab(torch, dev, eng, prompts, max_new: int) -> None:
+    """The ladder against the eager one-shot prefill, in the same call, A
+    B B A (A eager, B graphed), on the engine just served:
+
+    - the engine itself under a fresh Executor, its ``prefill_graphs``
+      set aside for A: the 6 requests of ``prompts`` with ``max_new``
+      tokens each per run; TTFT p50/p99 (nearest rank over both runs of
+      a mode, from each request's arrival and first token), tokens/s,
+      ``max_memory_allocated``; greedy tokens equal between the two runs
+      of a mode;
+    - the prefill alone on slot 0 (reset before each): the wall of each
+      prompt's prefill, ended by a synchronise, the median over both runs
+      of a mode;
+    - the graphed ladder's device time per prompt (CUDA events, the
+      chunks enqueued behind a device sleep), against its bytes bound:
+      chunks × the weights one pass reads at the compute dtype / 3.35
+      TB/s;
+    - the graphed logits and every cache bit-identical to the eager
+      chunks of the same plan (``eager_ladder``) on fresh caches."""
+    from repro_torch.core import Executor
+    from repro_torch.models import init_cache, prefill, reset_cache
+    from repro_torch.serving.graphs import eager_ladder
+
+    cfg, p, ladder = eng.cfg, eng.params, eng.prefill_graphs
+    caches = eng._caches[0]
+    tokens = [torch.as_tensor(q[None], dtype=torch.long, device=dev)
+              for q in prompts]
+    served = {"eager": [], "graphed": []}
+    alone = {"eager": [], "graphed": []}
+    order = ("eager", "graphed", "graphed", "eager")
+    with Executor(num_workers=2, devices=[dev]) as ex:
+        eng.executor = ex
+        for mode in order:
+            eng.prefill_graphs = ladder if mode == "graphed" else None
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            n0 = len(eng.completed)
+            t0 = time.perf_counter()
+            for q in prompts:
+                eng.submit(q, max_new_tokens=max_new)
+            done = eng.run()[n0:]
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            served[mode].append({
+                "wall": wall, "tokens": sum(len(r.generated) for r in done),
+                "ttft": [r.first_token_s - r.arrival_s for r in done],
+                "gen": [r.generated for r in sorted(done,
+                                                    key=lambda r: r.id)],
+                "peak": torch.cuda.max_memory_allocated(dev)})
+    eng.executor = None
+    eng.prefill_graphs = ladder
+    for mode in order:
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = []
+        for t in tokens:
+            reset_cache(cfg, caches)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if mode == "graphed":
+                ladder.prefill(0, t)
+            else:
+                prefill(cfg, p, t, caches)
+            torch.cuda.synchronize(dev)
+            run.append(time.perf_counter() - t0)
+        alone[mode].append((run, torch.cuda.max_memory_allocated(dev)))
+    for mode in ("eager", "graphed"):
+        a, b = served[mode]
+        if a["gen"] != b["gen"]:
+            raise AssertionError(f"{cfg.arch_id}: two {mode} runs of the "
+                                 f"same requests gave other tokens")
+        ttft = a["ttft"] + b["ttft"]
+        walls = [x for run, _ in alone[mode] for x in run]
+        print(f"ladder A B B A {cfg.arch_id}, {mode} prefill: TTFT p50 "
+              f"{_nearest_rank(ttft, 50)} p99 {_nearest_rank(ttft, 99)} s; "
+              f"tokens/s {[r['tokens'] / r['wall'] for r in served[mode]]}; "
+              f"peak GB served {[r['peak'] / 1e9 for r in served[mode]]}, "
+              f"prefill alone {[pk / 1e9 for _, pk in alone[mode]]}; "
+              f"prefill alone median {statistics.median(walls)} s (per "
+              f"prompt, runs {[run for run, _ in alone[mode]]})")
+    same = served["eager"][0]["gen"] == served["graphed"][0]["gen"]
+    print(f"  greedy tokens of the eager and the graphed runs equal: {same} "
+          f"({cfg.compute_dtype}: the chunks sum in another order than "
+          f"the one-shot prefill)")
+
+    weights = _tree_bytes(p["groups"]) + _tree_bytes(
+        p.get("lm_head", p["embed"]))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for q, t in zip(prompts, tokens):
+        chunks = ladder.plan(len(q))
+        reset_cache(cfg, caches)
+        flush.zero_()
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(50_000_000)         # ~25 ms: the chunks queue
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        ladder.prefill(0, t)
+        e.record()
+        torch.cuda.synchronize(dev)
+        bound = len(chunks) * weights / HBM_BYTES_S * 1e3
+        print(f"  graphed prefill of {len(q)} tokens, chunks {chunks}: "
+              f"device {s.elapsed_time(e)} ms, bytes bound {bound} ms "
+              f"({len(chunks)} x {weights} B of weights)")
+    for q, t in zip(prompts, tokens):
+        reset_cache(cfg, caches)
+        got = ladder.prefill(0, t).clone()
+        fresh = init_cache(cfg, 1, ladder.max_seq, device=dev)
+        want, fresh = eager_ladder(cfg, p, t, fresh, ladder.top)
+        same = torch.equal(got, want) and all(
+            torch.equal(a, b) for a, b in zip(_leaves(caches),
+                                               _leaves(fresh), strict=True))
+        if not same:
+            raise AssertionError(f"{cfg.arch_id}: the graphed ladder of "
+                                 f"{len(q)} tokens differs from the eager "
+                                 f"chunks of its plan")
+    print(f"  graphed logits and caches bit-identical to the eager chunks "
+          f"of the same plan for all {len(prompts)} prompts")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if hasattr(tree, "data_ptr") else []
+
+
+def ladder_f32_phase(torch, dev, cfg, params, max_seq: int) -> None:
+    """The ladder at f32 compute (``params``, the f32 masters, and f32
+    caches) on one slot: a 437-token prompt (256 + 128 + 32 + 16 + 4 + 1
+    at max_seq 1024) replayed from its graphs and 8 greedy steps from the
+    slot's decode graph, against the eager one-shot prefill of the same
+    prompt and its 8 eager steps: logits within LOGIT_ATOL (where a
+    recurrent state carries the chunks' difference into the steps,
+    xLSTM, the prefill's), the same greedy tokens; and the graphed
+    prefill's logits bit-identical to the eager chunks of its plan."""
+    import numpy as np
+
+    from repro_torch.models import (cast_params, decode_step, init_cache,
+                                    prefill, reset_cache)
+    from repro_torch.serving.graphs import (DecodeGraphs, PrefillGraphs,
+                                            eager_ladder)
+
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = cast_params(c32, params)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 437)), device=dev)
+    caches = init_cache(c32, 1, max_seq, dtype=torch.float32, device=dev)
+    dec = DecodeGraphs(c32, p32, [caches], dev)
+    ladder = PrefillGraphs(c32, p32, [caches], dec, max_seq, dev)
+    reset_cache(c32, caches)
+    logits = ladder.prefill(0, prompt).clone()
+    gt, gl = [int(logits[0].argmax())], [logits]
+    for n in range(8):
+        logits = dec.step(0, gt[-1], prompt.shape[1] + n).clone()
+        gt.append(int(logits[0].argmax()))
+        gl.append(logits)
+    gl = torch.cat(gl)
+    fresh = init_cache(c32, 1, max_seq, dtype=torch.float32, device=dev)
+    same, _ = eager_ladder(c32, p32, prompt, fresh, ladder.top)
+    fresh = init_cache(c32, 1, max_seq, dtype=torch.float32, device=dev)
+    logits, fresh = prefill(c32, p32, prompt, fresh)
+    ot, ol = [int(logits[0].argmax())], [logits]
+    for _ in range(8):
+        logits, fresh = decode_step(
+            c32, p32, torch.tensor([ot[-1]], device=dev), fresh)
+        ot.append(int(logits[0].argmax()))
+        ol.append(logits)
+    ol = torch.cat(ol)
+    err = float((gl - ol).abs().max())
+    first = float((gl[0] - ol[0]).abs().max())
+    recurrent = any(m in ("mlstm", "slstm", "rglru")
+                    for g in cfg.groups for m in g.pattern)
+    bitwise = torch.equal(gl[:1], same)
+    print(f"ladder prefill {cfg.arch_id} ({cfg.n_layers} layers), f32, "
+          f"graphed {ladder.plan(prompt.shape[1])} (captured in "
+          f"{ladder.capture_seconds} s): tokens {gt}, one-shot {ot}; max "
+          f"logit diff {err}, of the prefill {first} (tol {LOGIT_ATOL}"
+          f"{', the prefill held' if recurrent else ''}); bit-identical to "
+          f"the eager chunks {bitwise}")
+    if gt != ot or max(first, 0.0 if recurrent else err) > LOGIT_ATOL \
+            or not bitwise:
+        raise AssertionError(f"{cfg.arch_id}: the f32 ladder prefill "
+                             f"differs from the one-shot prefill or from "
+                             f"its eager chunks")
 
 
 def chunked_prefill_phase(torch, dev, cfg, params, served,
@@ -2151,8 +2466,11 @@ def serve_lm_case(card: str) -> dict:
     """Phase 9 (e): the serve_lm twin with its defaults and with ``--bins
     2 --scheduler balanced``: every request finishes, flash = layers x
     prefills and decode = layers x decode steps (the replays and the
-    engine's warm-up step) as phase 5 counts them.  Returns the counts by
-    run."""
+    engine's warm-up step) as phase 5 counts them, every prefill replayed
+    from the ladder (flash = layers x its chunks of two tokens or more and
+    its warm-up chunks, its one-token chunks decode steps).  Returns the
+    counts by run."""
+    from repro_torch.launch.serve import graph_report
     from repro_torch.serving.graphs import DecodeGraphs
 
     serve_lm = _examples()[3]
@@ -2171,17 +2489,22 @@ def serve_lm_case(card: str) -> dict:
         if not all(r.done for r in done) or s["preemptions"]:
             raise AssertionError(f"{name}: a request did not finish or was "
                                  f"preempted")
-        graphs = eng.decode_graphs
+        graphs, ladder = eng.decode_graphs, eng.prefill_graphs
         if graphs.replays != sum(len(r.generated) - 1 for r in done):
             raise AssertionError(f"{name}: a decode step was not a replay")
+        if ladder.prefills != len(done):
+            raise AssertionError(f"{name}: a prefill was not replayed")
+        print(f"[{card}] {name}: {graph_report(eng)}")
         layers = eng.cfg.n_layers
         _check_counts(counts, {
-            "flash_attention": layers * len(done),
+            "flash_attention": layers * (ladder.replays
+                                         + ladder.warmup_chunks),
             "decode_attention": layers * (graphs.replays
-                                          + DecodeGraphs.warmup_steps)})
+                                          + DecodeGraphs.warmup_steps
+                                          + ladder.decode_chunks)})
         for k, n in counts.items():
             launches.setdefault(k, {})[name] = n
-        del eng, graphs
+        del eng, graphs, ladder
         gc.collect()
     return launches
 
@@ -2300,7 +2623,7 @@ def main() -> int:
     path(PHI3, phi3, [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 32 * p, "decode_attention": 32 * s,
                        "rglru_scan": 0, "moe_gating": 0},
-         chunk_want={"flash_attention": 32})
+         chunk_want={"flash_attention": 32}, ladder_f32=True)
     # recurrentgemma-2b: 18 RG-LRU and 8 local-attention layers; the
     # 3000-token prompt is masked by the 2048 window and wraps the ring
     path(RG, get_config(RG), [64, 512, 300, 137, 450, 64, 3000], 4096,
@@ -2328,6 +2651,7 @@ def main() -> int:
                           dev)
     chunk = chunked_prefill_phase(torch, dev, canary, weights, weights, 1024)
     _check_counts(chunk, {})
+    ladder_f32_phase(torch, dev, canary, weights, 1024)
     for k, n in chunk.items():
         launches[k][f"{XLSTM} canary chunked prefill"] = n
     del weights
@@ -2349,12 +2673,12 @@ def main() -> int:
     path(QWEN2VL, get_config(QWEN2VL), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 28 * p, "decode_attention": 28 * s,
                        "rglru_scan": 0, "moe_gating": 0},
-         chunk_want={"flash_attention": 28})
+         chunk_want={"flash_attention": 28}, ladder_f32=True)
     # musicgen-large: 48 attention layers (MHA, D 64), f32, prompts of
     # stub EnCodec ids
     path(MUSICGEN, get_config(MUSICGEN), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 48 * p, "decode_attention": 48 * s,
-                       "rglru_scan": 0, "moe_gating": 0})
+                       "rglru_scan": 0, "moe_gating": 0}, ladder_f32=True)
 
     def trained(name, cfg, batch, seq, steps, per_step, cut="nothing cut"):
         counts = train_phase(torch, dev, cfg, batch=batch, seq=seq,

@@ -257,7 +257,9 @@ def write_row(cache, row, value) -> None:
     DTensor cache sharded along its rows (a long cache's rows over the
     model axis) is written by the rank that holds the row, at its local
     index, as flash-decode writes: DTensor cannot index into a sharded
-    dim in place.  Elsewhere ``index_copy_``."""
+    dim in place.  Elsewhere ``index_copy_``, which also takes a chunk's
+    S rows (``row`` (S,), ``value`` (B, S, ...): a ladder prefill's chunk
+    on a plain cache)."""
     from ..core.streams import is_dtensor
     if not is_dtensor(cache):
         cache.index_copy_(1, row, value.to(cache.dtype))

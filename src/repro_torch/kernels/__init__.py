@@ -18,9 +18,11 @@ sources with ``nvcc`` for ``sm_90a`` at first use.
 A wrapper counts a launch when its Python code runs, which a CUDA
 graph's replay does not do: :class:`GraphLaunches` takes back what a
 capture counted (a capture launches nothing) and adds it again at every
-replay.
+replay.  Every capture of the port runs inside its ``capture()``, which
+also keeps Python's cyclic garbage collector out of the capture.
 """
 import contextlib
+import gc
 
 from .flash_attention.ops import (flash_attention, flash_attention_bwd,
                                   flash_attention_bwd_plain,
@@ -53,7 +55,15 @@ class GraphLaunches:
     ``with counts.capture(): <capture>`` records what the wrappers counted
     while the graph was captured into ``per_replay`` and takes it back
     from the counters; ``counts.replay(graph)`` replays the graph and adds
-    ``per_replay`` to them."""
+    ``per_replay`` to them.
+
+    ``capture()`` also turns the cyclic garbage collector off for its
+    span.  ``torch.cuda.graph`` no longer collects before a capture, so a
+    dead reference cycle holding an earlier graph (an engine and its
+    executor's closures) could be collected by an automatic collection
+    inside the capture; the graph's ``reset`` then runs in the capture,
+    which CUDA refuses, and the capture is invalidated (cuBLAS or a
+    kernel launch reports it later in the capture)."""
 
     def __init__(self, names=COUNTED):
         self.names = tuple(names)
@@ -62,9 +72,13 @@ class GraphLaunches:
     @contextlib.contextmanager
     def capture(self):
         before = launch_counts(self.names)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             yield self
         finally:
+            if collecting:
+                gc.enable()
             after = launch_counts(self.names)
             self.per_replay = {n: after[n] - before[n] for n in self.names}
             self._add(-1)

@@ -11,7 +11,12 @@
 // the cache length for a prompt that continues a cache (chunked prefill,
 // which the reference runs through its plain chunked attention with
 // q_offset; k and v are then the cache's first q_offset + Sq rows, read in
-// place through their strides, so Sk > Sq).  Masked logits get an
+// place through their strides, so Sk > Sq).  A chunk of a captured
+// prefill reads q_offset from the device (one graph serves every offset)
+// and takes the cache's whole rows as k and v: the causal mask hides the
+// rows past the chunk, and the key loop stops at the chunk's last
+// position, so only the last key tile reads such rows (zeros after a
+// reset, which the mask turns into 0 · 0).  Masked logits get an
 // additive -1e30, as in the TPU kernel.  Output in the input type.  The
 // value head dim Dv may differ from the q/k head dim D, as the TPU
 // kernel's (MLA: D = 192, Dv = 128): S = Q·Kᵀ runs over D, and V, the
@@ -95,8 +100,17 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   int causal, window;  // window <= 0: none
   int q_offset;        // the position of query row 0 among the keys
+  // or, where not null, that position read from the device (a chunk of a
+  // captured prefill: one graph serves every offset); q_offset unused
+  const long long* q_offset_dev;
   float scale;
 };
+
+// the key position of query row 0: from the device where the caller
+// gave it there
+__device__ __forceinline__ int query_offset(const Params& p) {
+  return p.q_offset_dev ? int(*p.q_offset_dev) : p.q_offset;
+}
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
@@ -148,7 +162,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
   }
 
   // kv tiles some row of this q tile can see (positions, not rows)
-  const int qo = p.q_offset;
+  const int qo = query_offset(p);
   const int q_last = min(q0 + BQ, p.Sq) - 1;
   int k_end = p.Sk;
   if (p.causal) k_end = min(k_end, qo + q_last + 1);
@@ -355,7 +369,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.K);
-  const int qo = p.q_offset;
+  const int qo = query_offset(p);
   // kv tiles some row of this q tile can see (positions, not rows)
   const int q_last = min(q0 + BQ, p.Sq) - 1;
   const int k_end = p.causal ? min(p.Sk, qo + q_last + 1) : p.Sk;
@@ -652,14 +666,18 @@ int run(Params p, int B, cudaStream_t stream) {
 // cudaError_t, 1000 + a CUresult if a tensor map could not be built, or
 // -1 for arguments the kernel does not take (for bf16, a (D, Dv) box pair
 // it is not instantiated for).  lse: null, or the (B, H, Sq) f32 output.
-// q_offset: the key position of query row 0 (>= 0).
+// q_offset: the key position of query row 0 (>= 0), or, where
+// q_offset_dev is not null, a device int64 holding it: the caller checks
+// that the q rows' positions fall inside the keys (the kernel cannot read
+// it here), and keys past the last row's position are masked causally.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     int dtype, int B,
     int H, int K, int Sq, int Sk, int D, int Dv, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    int causal, int window, int q_offset, float scale, void* stream) {
+    int causal, int window, int q_offset, const long long* q_offset_dev,
+    float scale, void* stream) {
   if (D <= 0 || D > MAX_D || D % 8 || Dv <= 0 || Dv > MAX_D || Dv % 8 ||
       K <= 0 || H % K || B <= 0 || Sq <= 0 || Sk <= 0 || B > 65535 ||
       H > 65535 || q_offset < 0)
@@ -688,6 +706,7 @@ extern "C" int flash_attention_fwd(
   p.causal = causal;
   p.window = window;
   p.q_offset = q_offset;
+  p.q_offset_dev = q_offset_dev;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return simt::run(p, B, s);

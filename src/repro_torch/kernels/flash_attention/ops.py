@@ -39,7 +39,7 @@ NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = ([_P] * 5 + [_I] * 8 + [_L] * 9
-             + [_I, _I, _I, ctypes.c_float, _P])
+             + [_I, _I, _I, _P, ctypes.c_float, _P])
 _BWD_ARGTYPES = [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P]
 #: the (q/k, v) counts of 64-column boxes the bf16 kernel is built for
 #: (``csrc/flash_attention.cu``, ``tc::run``): D 8-64, 65-128 and 129-256
@@ -117,7 +117,8 @@ def _tma_ready(t: torch.Tensor) -> bool:
 def _plain_scores(q, k, causal, window, scale, q_offset=0):
     """The masked f32 scores (B, K, G, Sq, Sk) of the plain version: an
     additive -1e30 for keys hidden by the causal mask or the window, with
-    query row i at position ``q_offset + i``."""
+    query row i at position ``q_offset + i`` (an int, or a (1,) int64
+    tensor on q's device)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     qh = q.float().reshape(B, Sq, K, H // K, D)
@@ -135,11 +136,13 @@ def _plain_scores(q, k, causal, window, scale, q_offset=0):
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, window: int | None = None,
                           scale: float | None = None,
-                          with_lse: bool = False, q_offset: int = 0):
+                          with_lse: bool = False,
+                          q_offset: int | torch.Tensor = 0):
     """Dense f32 attention with the kernel's masking: an additive -1e30
     for keys hidden by the causal mask (query row i, at position
     ``q_offset + i``, sees keys j <= q_offset + i) or the window (and
-    q_offset + i - j < window).
+    q_offset + i - j < window).  ``q_offset``: an int, or a (1,) int64
+    tensor on q's device (read there, never on the host).
 
     q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv), H a multiple
     of K; Sk may exceed Sq (a prompt at a cache offset attends to the
@@ -232,11 +235,16 @@ def flash_attention_bwd_cost(q, k, v, out, dout, lse, window: int = 0,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None, with_lse: bool = False,
-                    q_offset: int = 0):
+                    q_offset: int | torch.Tensor = 0):
     """q: (B, Sq, H, D); k: (B, Sk, K, D); v: (B, Sk, K, Dv) — model
     layout.  The value head dim Dv may differ from D (MLA).  ``q_offset``
     is the position of q's first row among the keys (a prompt at a cache
-    offset: its length), so the causal mask is q_offset + i >= j.
+    offset: its length), so the causal mask is q_offset + i >= j: an int,
+    or a (1,) int64 tensor on q's device, which the kernel reads there (a
+    chunk of a captured prefill, whose one graph serves every offset; k
+    and v are then the cache's whole rows, and the caller checks that
+    the chunk fits them).  A device offset launches directly on a CUDA
+    tensor; the custom op takes an int.
 
     When an input requires a gradient (and grad mode is on), the call
     goes through :class:`FlashAttention`, whose backward is
@@ -254,13 +262,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     q, k, v = local_operands("flash_attention", q, k, v)
     scale = _check(q, k, v, window, scale)
-    if q_offset < 0:
+    at_device = isinstance(q_offset, torch.Tensor)
+    if at_device:
+        if (tuple(q_offset.shape) != (1,) or q_offset.dtype != torch.long
+                or q_offset.device != q.device):
+            raise ValueError(f"flash_attention: a device q_offset is a (1,) "
+                             f"int64 tensor on q's device, got "
+                             f"{tuple(q_offset.shape)} {q_offset.dtype} on "
+                             f"{q_offset.device}")
+    elif q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
     q, k, v = kv_for_q_heads(q, k, v, 2, 2)
     if not with_lse and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
-        if q_offset:
+        if at_device or q_offset:
             raise NotImplementedError(
                 "flash_attention: no backward at a q offset (a prompt at a "
                 "cache offset); the reference differentiates q_offset 0 "
@@ -302,6 +318,14 @@ def _forward(q, k, v, causal, window, scale, with_lse, q_offset=0):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, with_lse=with_lse,
                                      q_offset=q_offset)
+    if isinstance(q_offset, torch.Tensor):
+        if how != "launch":
+            raise NotImplementedError(
+                "flash_attention: a device q_offset launches directly; the "
+                "custom op (a traced call) takes an int offset")
+        out, lse = _launch(q, k, v, window or 0, 0, q_offset, causal,
+                           with_lse, scale)
+        return (out, lse) if with_lse else out
     args = (q, k, v, window or 0, q_offset, causal, with_lse, scale)
     out, lse = (_fwd_launch(*args) if how == "launch"
                 else torch.ops.repro_torch.flash_attention(*args))
@@ -313,6 +337,14 @@ def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's launch on a CUDA tensor: (out, lse), lse
     empty without ``with_lse`` (the kernel then writes none)."""
+    return _launch(q, k, v, window, q_offset, None, causal, with_lse, scale)
+
+
+def _launch(q, k, v, window: int, q_offset: int, q_offset_dev, causal: bool,
+            with_lse: bool, scale: float):
+    """:func:`_fwd_launch`, with the q offset from the host int
+    ``q_offset`` or, where ``q_offset_dev`` is a (1,) int64 tensor, read
+    by the kernel from the device."""
     B, Sq, H, D = q.shape
     _, Sk, K, Dv = v.shape
     _check_cuda("flash_attention", (q, k, v))
@@ -337,8 +369,9 @@ def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
-             int(causal), window or 0, q_offset, scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             int(causal), window or 0, q_offset,
+             None if q_offset_dev is None else q_offset_dev.data_ptr(),
+             scale, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
     flash_attention.launches += 1

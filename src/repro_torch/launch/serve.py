@@ -21,7 +21,7 @@ from ..core import Executor
 from ..models import init_params
 from ..serving import ServingEngine
 
-__all__ = ["serve", "main"]
+__all__ = ["graph_report", "serve", "main"]
 
 
 def serve(cfg: ModelConfig, params, prompts: Sequence[np.ndarray], *,
@@ -75,7 +75,25 @@ def main(argv=None) -> int:
     toks = sum(len(r.generated) for r in done)
     print(f"{len(done)} requests / {toks} tokens in {dt:.2f}s; "
           f"stats={eng.stats()}")
+    print(graph_report(eng))
     return 0
+
+
+def graph_report(eng: ServingEngine) -> str:
+    """One line on the engine's CUDA graphs: the decode graphs' and the
+    prefill ladder's capture seconds and replays (eager where a path has
+    none)."""
+    dec, pre = eng.decode_graphs, eng.prefill_graphs
+    if dec is None:
+        return "graphs: none (eager prefill and decode)"
+    line = (f"decode graphs: {len(dec.slots)} captured in "
+            f"{dec.capture_seconds:.3f}s, {dec.replays} replays; ")
+    if pre is None:
+        return line + "prefill eager"
+    return line + (f"prefill graphs: rungs 2-{pre.top} x {len(pre.slots)} "
+                   f"slots captured in {pre.capture_seconds:.3f}s, "
+                   f"{pre.prefills} prefills in {pre.replays} chunk "
+                   f"replays + {pre.decode_chunks} one-token chunks")
 
 
 if __name__ == "__main__":

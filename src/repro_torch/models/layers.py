@@ -105,12 +105,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
-def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+def attention(q, k, v, *, causal: bool = True,
+              q_offset: int | torch.Tensor = 0,
               window: int | None = None, scale: float | None = None,
               valid_len: torch.Tensor | None = None) -> torch.Tensor:
     """Grouped-query attention.  q: (B, Sq, H, D); k: (B, Sk, K, D); v:
     (B, Sk, K, Dv).  ``q_offset``: the position of q's first row among
-    the keys (a prompt that continues a cache: its length).
+    the keys (a prompt that continues a cache: its length), an int or a
+    (1,) int64 device tensor.
 
     One query token (decode) goes to the decode-attention kernel: rows
     below ``valid_len`` are attended (default 1: a lone token without a
@@ -163,7 +165,11 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
     prompt writes rows [length, length + S) and attends to the cache's
     rows [0, length + S) in place at q offset ``length`` (at length > 0,
     chunked prefill: the reference's ``dynamic_update_slice`` and
-    ``attention(q_offset=length)``).
+    ``attention(q_offset=length)``).  A prompt given ``step`` (a chunk of
+    the ladder prefill, ``transformer._prompt_steps``: its rows and first
+    position as device tensors) writes those rows with ``index_copy_`` and
+    attends to the cache's whole rows at the device q offset, so it reads
+    no host scalar either: the causal mask hides the rows past the chunk.
     ``local``: sliding-window attention over ``cfg.rec.local_window``;
     its cache of W <= window rows is a ring holding the last W tokens
     (post-RoPE keys, so the rotation survives the wrap), as the
@@ -219,6 +225,14 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
             write_row(v_cache, row, v)
             out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
                             valid_len=valid_len)
+        elif step is not None:
+            # a chunk at a device offset: rows start .. start + S - 1,
+            # which the ladder's plan checked fit the cache
+            rows, _, start = step
+            write_row(k_cache, rows, k)
+            write_row(v_cache, rows, v)
+            out = attention(q, k_cache.to(cdt), v_cache.to(cdt),
+                            q_offset=start)
         elif local:
             if length != 0:
                 raise NotImplementedError(

@@ -30,7 +30,10 @@ cache position as a device tensor (``pos``):
 every cache row it writes, its attention mask and its RoPE positions
 are computed from it on the device, so the step holds no host scalar
 and can be captured in a CUDA graph and replayed
-(``repro_torch.serving.graphs``).
+(``repro_torch.serving.graphs``).  So does a prompt chunk given ``pos``
+(its first cache position), in the families :func:`takes_ladder` names:
+the ladder prefill's chunks, one graph per chunk size serving every
+offset.
 """
 from __future__ import annotations
 
@@ -388,6 +391,32 @@ def _projection_input(h):
     return constrain(h, "batch_only")
 
 
+#: the mixers and FFNs whose prompt runs at a device offset (``pos``):
+#: global attention writes a chunk's rows anywhere in its cache and the
+#: recurrent xLSTM states carry on; a local-attention ring takes a prompt
+#: at length 0 only, MLA's prompt branch reads the host length, and a
+#: MoE FFN's capacity follows the tokens of a call, so a chunk would
+#: route and drop otherwise than the whole prompt
+_LADDER_MIXERS = frozenset({"attn", "mlstm", "slstm"})
+_LADDER_FFNS = frozenset({"dense", "none"})
+
+
+def takes_ladder(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s prompt can run as chunks at a device offset
+    (``forward(..., pos=)`` with S > 1): every sub-layer's mixer is global
+    attention, mLSTM or sLSTM and its FFN dense or none."""
+    return all(m in _LADDER_MIXERS and g.ffn_of(i) in _LADDER_FFNS
+               for g in cfg.groups for i, m in enumerate(g.pattern))
+
+
+def _prompt_steps(caches, rows, pos) -> dict:
+    """A prompt chunk's cache rows per attention cache size W, for
+    ``attn_forward``: (rows, None, pos), ``rows`` = pos + arange(S) on the
+    device."""
+    return {sub["k"].shape[2]: (rows, None, pos)
+            for gc in caches for sub in gc.values() if "k" in sub}
+
+
 def _decode_steps(caches, pos, batch: int) -> dict:
     """The decode step's cache row and mask per attention cache size W
     (a k/v or an MLA latent cache), computed on the device from ``pos``
@@ -421,9 +450,13 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     positions, (B, S) or (3, B, S) under M-RoPE (default: the cache
     offset plus arange, broadcast to the three M-RoPE coordinates).
     logits_slice: return logits for the LAST position only (decode).
-    pos: for one token with caches, its cache position as a (1,) int64
-    device tensor (default: made from the caches' host length); the
-    default positions come from it.  aux: also return the MoE
+    pos: with caches, the cache position of the first token as a (1,)
+    int64 device tensor; the default positions come from it.  For one
+    token it defaults to the caches' host length.  For a prompt (S > 1)
+    it makes the chunk run at that device offset (:func:`takes_ladder`
+    families only; the caller checks that pos + S fits the caches), reading
+    no host length; without it a prompt starts at the host length.
+    aux: also return the MoE
     load-balance loss summed over layers, as the reference's third
     result.  remat_policy: ``"full"``, ``"dots"`` or ``"none"`` (module
     docstring); it acts only without caches.
@@ -450,6 +483,15 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
                              device=x.device)
         pos1d = pos.expand(B, 1)
         steps = _decode_steps(caches, pos, B)
+    elif caches is not None and pos is not None:
+        if not takes_ladder(cfg):
+            raise NotImplementedError(
+                f"{cfg.arch_id}: a prompt at a device offset needs global "
+                f"attention, mLSTM or sLSTM mixers and dense FFNs (a ring, "
+                f"MLA or MoE sub-layer prefills from the host length)")
+        rows = pos + torch.arange(S, device=x.device)
+        pos1d = rows[None].expand(B, S)
+        steps = _prompt_steps(caches, rows, pos)
     else:
         offset = _cache_length(caches) if caches is not None else 0
         pos1d = (offset + torch.arange(S, device=x.device))[None]
@@ -585,12 +627,16 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, caches, *,
-            extra_embeds=None, positions=None):
+            extra_embeds=None, positions=None, pos=None):
     """Prefill: run the prompt (after ``extra_embeds``, if given) through,
-    filling caches; returns last-token logits + updated caches."""
+    filling caches; returns last-token logits + updated caches.  ``pos``:
+    the first token's cache position as a (1,) int64 device tensor (a
+    chunk of the ladder prefill, :func:`forward`); the eager twin of a
+    captured chunk (``serving.graphs.PrefillGraphs``)."""
     logits, new_caches = forward(cfg, params, tokens, caches=caches,
                                  extra_embeds=extra_embeds,
-                                 positions=positions, logits_slice=True)
+                                 positions=positions, logits_slice=True,
+                                 pos=pos)
     return logits[:, 0], new_caches
 
 

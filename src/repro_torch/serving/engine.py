@@ -42,8 +42,11 @@ timeline as the executor's spans.
 under an executor each tick runs on its bin's compute stream.  Each
 slot's decode step is a CUDA graph captured when the engine is built
 (:mod:`repro_torch.serving.graphs`, the counterpart of the reference's
-``jax.jit``) and replayed on the current stream; prefill stays eager,
-as do both on the CPU.  The greedy token is read back with ``.item()``
+``jax.jit``) and replayed on the current stream.  So is prefill, as a
+ladder of graphed chunks at a device offset (``prefill_graphs``), for
+every family whose prompt can run so (``transformer.takes_ladder``:
+not a local-attention ring, MLA or MoE, which prefill eagerly).  On the
+CPU both stay eager.  The greedy token is read back with ``.item()``
 — one host sync per generated token.
 
 KV capacity is governed per bin by the :class:`PagedKVArena` buddy pool —
@@ -91,7 +94,7 @@ from ..sched import (
     build_groups,
     get_scheduler,
 )
-from .graphs import DecodeGraphs
+from .graphs import DecodeGraphs, PrefillGraphs
 from .kv_cache import PagedKVArena
 
 #: request lifecycle states (``Request.state``)
@@ -154,7 +157,8 @@ class ServingEngine:
     (``transformer.cast_params``).  ``device`` is where the model runs
     (default: the device of the embedding table).  Each slot's cache is
     allocated here and reset in place at admission; on CUDA each slot's
-    decode step is captured here too (``decode_graphs``).
+    decode step is captured here too (``decode_graphs``), and its prefill
+    ladder where the family takes one (``prefill_graphs``).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
@@ -216,6 +220,13 @@ class ServingEngine:
         self.decode_graphs = (
             DecodeGraphs(cfg, self.params, self._caches, self.device)
             if self.device.type == "cuda" else None)
+        #: the per-slot prefill ladders on CUDA for a family that takes
+        #: one; None on the CPU and for the others (eager prefill)
+        self.prefill_graphs = (
+            PrefillGraphs(cfg, self.params, self._caches, self.decode_graphs,
+                          max_seq, self.device)
+            if self.decode_graphs is not None
+            and transformer.takes_ladder(cfg) else None)
         self._obs = obs
         #: public registry — counters/histograms the engine publishes
         #: into; :meth:`stats` is a back-compat view over it
@@ -503,12 +514,17 @@ class ServingEngine:
                     del self._placed[req.id]
                     req._advance(state=PREFILL)
                     # prefill this slot, from the state init_cache gives:
-                    # the last occupant's recurrent state must not leak
-                    tokens = torch.as_tensor(req.prompt[None, :],
-                                             dtype=torch.long).to(self.device)
+                    # the last occupant's recurrent state must not leak,
+                    # and a chunk's last key tile reads rows past it
                     transformer.reset_cache(self.cfg, self._caches[i])
-                    logits, self._caches[i] = transformer.prefill(
-                        self.cfg, self.params, tokens, self._caches[i])
+                    if self.prefill_graphs is not None:
+                        logits = self.prefill_graphs.prefill(i, req.prompt)
+                    else:
+                        tokens = torch.as_tensor(
+                            req.prompt[None, :],
+                            dtype=torch.long).to(self.device)
+                        logits, self._caches[i] = transformer.prefill(
+                            self.cfg, self.params, tokens, self._caches[i])
                     req.generated.append(int(logits[0].argmax().item()))
                     now = self._clock()
                     if req.first_token_s is None:

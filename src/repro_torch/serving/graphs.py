@@ -1,6 +1,6 @@
-"""The engine's decode step captured in CUDA graphs: the port's
-counterpart of the reference's ``jax.jit`` over ``decode_step``
-(``repro.serving.engine``).
+"""The engine's decode step and prefill captured in CUDA graphs: the
+port's counterparts of the reference's ``jax.jit`` over ``decode_step``
+and ``prefill`` (``repro.serving.engine``).
 
 Each slot's batch-1 decode step is captured once, over that slot's
 caches (allocated once, reset in place at admission), and replayed for
@@ -17,7 +17,22 @@ each kernel it holds (``kernels.GraphLaunches``: what the capture
 counted is taken back, since a capture launches nothing), and every
 replay adds them.
 
-Nothing here falls back to the eager step: a capture or replay error
+The reference retraces prefill for each prompt length.  A graph per
+exact length would be captured on nearly every request of mixed
+traffic, at about the cost of the eager prefill it replaces, so prefill
+runs as a *ladder* instead (:class:`PrefillGraphs`): each slot captures
+one graph per rung, a chunk of r = 2, 4, ..., R tokens (R the largest
+power of two <= min(512, max_seq)) at a start position read from a
+device buffer, and a prompt of L tokens runs as :func:`plan` gives it:
+L // R chunks of R, then the binary digits of L mod R, largest first.  A
+chunk of one token is the slot's decode graph (``forward`` takes the
+same one-token branch).  The chunks give what the eager
+``transformer.prefill(..., pos=)`` of the same plan gives, bit for bit;
+the one-shot prefill, within the f32 tolerance chunked prefill is held
+to.  Families whose prompt cannot run at a device offset
+(``transformer.takes_ladder``) prefill eagerly.
+
+Nothing here falls back to eager code: a capture or replay error
 raises.
 """
 from __future__ import annotations
@@ -29,7 +44,11 @@ import torch
 from .. import kernels
 from ..models import transformer
 
-__all__ = ["DecodeGraph", "DecodeGraphs"]
+__all__ = ["DecodeGraph", "DecodeGraphs", "PrefillGraph", "PrefillGraphs",
+           "eager_ladder", "plan", "top_rung"]
+
+#: the longest chunk of the ladder
+MAX_RUNG = 512
 
 #: the kernel wrappers a decode step can launch: the launch counters a
 #: replay advances
@@ -53,10 +72,14 @@ class DecodeGraph:
         #: launches of each kernel per replay
         self.launches = self.counts.per_replay
 
-    def __call__(self, token: int, pos: int) -> torch.Tensor:
-        """Replay on the current stream for ``token`` at cache position
-        ``pos``; returns the static (1, V) logits buffer."""
-        self.token.fill_(token)
+    def __call__(self, token, pos: int) -> torch.Tensor:
+        """Replay on the current stream for ``token`` (an int, or a
+        one-element device tensor) at cache position ``pos``; returns the
+        static (1, V) logits buffer."""
+        if isinstance(token, torch.Tensor):
+            self.token.copy_(token.reshape(1))
+        else:
+            self.token.fill_(token)
         self.pos.fill_(pos)
         self.counts.replay(self.graph)
         return self.logits
@@ -84,7 +107,8 @@ class DecodeGraphs:
                                     pos=zero)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
-        pool = torch.cuda.graph_pool_handle()
+        #: the memory pool every graph of the engine shares
+        self.pool = pool = torch.cuda.graph_pool_handle()
         self.slots = [DecodeGraph(cfg, params, c, pool=pool, device=device)
                       for c in slot_caches]
         torch.cuda.synchronize(device)
@@ -96,3 +120,146 @@ class DecodeGraphs:
         ``pos``: (1, V) logits, valid until that slot's next replay."""
         self.replays += 1
         return self.slots[slot](token, pos)
+
+
+def top_rung(max_seq: int) -> int:
+    """R: the largest power of two <= min(MAX_RUNG, max_seq)."""
+    return 1 << (min(MAX_RUNG, max_seq).bit_length() - 1)
+
+
+def plan(L: int, R: int) -> list[int]:
+    """The chunk sizes a prompt of ``L`` tokens runs as on a ladder whose
+    top rung is ``R`` (a power of two): L // R chunks of R, then the
+    binary digits of L mod R, largest first."""
+    if L < 1 or R < 1 or R & (R - 1):
+        raise ValueError(f"plan: {L} tokens on a top rung of {R}")
+    chunks = [R] * (L // R)
+    bit = R >> 1
+    while bit:
+        if L & bit:
+            chunks.append(bit)
+        bit >>= 1
+    return chunks
+
+
+def eager_ladder(cfg, params, tokens, caches, R: int):
+    """The eager twin of :meth:`PrefillGraphs.prefill`: ``tokens`` (1, L)
+    run chunk by chunk in :func:`plan`'s order through
+    ``transformer.prefill(..., pos=)``.  Returns the last chunk's logits
+    and the caches."""
+    start = 0
+    for r in plan(tokens.shape[1], R):
+        pos = torch.full((1,), start, dtype=torch.long, device=tokens.device)
+        logits, caches = transformer.prefill(
+            cfg, params, tokens[:, start:start + r], caches, pos=pos)
+        start += r
+    return logits, caches
+
+
+class PrefillGraph:
+    """One slot's prompt chunk of ``rung`` tokens over ``caches``,
+    captured in a CUDA graph at a start position read from a static
+    device buffer."""
+
+    def __init__(self, cfg, params, caches, rung: int, *, pool, device):
+        self.tokens = torch.zeros((1, rung), dtype=torch.long, device=device)
+        self.start = torch.zeros((1,), dtype=torch.long, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.counts = kernels.GraphLaunches(COUNTED)
+        with self.counts.capture(), torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode="thread_local"):
+            self.logits, _ = transformer.prefill(cfg, params, self.tokens,
+                                                 caches, pos=self.start)
+        #: launches of each kernel per replay
+        self.launches = self.counts.per_replay
+
+    def __call__(self, tokens: torch.Tensor, start: int) -> torch.Tensor:
+        """Replay on the current stream for ``tokens`` (1, rung) on the
+        device at cache position ``start``; returns the static (1, V)
+        logits buffer."""
+        self.tokens.copy_(tokens)
+        self.start.fill_(start)
+        self.counts.replay(self.graph)
+        return self.logits
+
+
+class PrefillGraphs:
+    """The ladder prefill (module docstring): per slot, a
+    :class:`PrefillGraph` for each rung 2, 4, ..., :func:`top_rung`, in
+    the decode graphs' pool, with the slot's decode graph as the rung of
+    one token.  Captured after one eager warm-up chunk of every rung (on
+    the first slot's caches, which admission resets anyway, at position
+    0): what happens at a kernel's first use (the flash kernel's library
+    and its shared-memory attribute, a library kernel that a rung's
+    shapes pick loaded into the process) happens outside a capture.
+    ``capture_seconds`` covers the warm-up and the captures; ``prefills``
+    counts prompts, ``replays`` the chunks of two tokens or more and
+    ``decode_chunks`` the chunks of one; ``warmup_chunks`` the eager
+    chunks (their launches count as launches).  Raises on a CPU device
+    and for a family ``transformer.takes_ladder`` refuses."""
+
+    def __init__(self, cfg, params, slot_caches, decode_graphs: DecodeGraphs,
+                 max_seq: int, device):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"PrefillGraphs: CUDA graphs need a CUDA device, "
+                             f"got {device}")
+        if not transformer.takes_ladder(cfg):
+            raise ValueError(f"PrefillGraphs: {cfg.arch_id} prefills "
+                             f"eagerly (transformer.takes_ladder)")
+        t0 = time.perf_counter()
+        self.caches, self.device = slot_caches, device
+        self.decode, self.max_seq = decode_graphs, max_seq
+        self.top = top_rung(max_seq)
+        self.rungs = [1 << i for i in range(1, self.top.bit_length())]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for r in self.rungs:
+                zero = torch.zeros((1, r), dtype=torch.long, device=device)
+                transformer.prefill(cfg, params, zero, slot_caches[0],
+                                    pos=zero[0, :1])
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        self.warmup_chunks = len(self.rungs)
+        #: per slot, the rung r's graph
+        self.slots = [{r: PrefillGraph(cfg, params, c, r,
+                                       pool=decode_graphs.pool,
+                                       device=device)
+                       for r in self.rungs} for c in slot_caches]
+        torch.cuda.synchronize(device)
+        self.capture_seconds = time.perf_counter() - t0
+        self.prefills = self.replays = self.decode_chunks = 0
+
+    def plan(self, L: int) -> list[int]:
+        """The chunks a prompt of ``L`` tokens runs as."""
+        return plan(L, self.top)
+
+    def prefill(self, slot: int, prompt) -> torch.Tensor:
+        """Prefill slot ``slot``'s caches (reset by the caller) with
+        ``prompt`` ((L,) or (1, L) token ids: numpy, or a tensor on the
+        card), chunk by chunk on the current stream; sets every attention
+        sub-cache's host ``length`` to L.  Returns the last chunk's (1, V)
+        logits, valid until the next replay of the engine's graphs."""
+        tokens = torch.as_tensor(prompt).reshape(1, -1).to(
+            self.device, torch.long)
+        L = tokens.shape[1]
+        if not 1 <= L <= self.max_seq:
+            raise ValueError(f"PrefillGraphs: a prompt of {L} tokens for "
+                             f"caches of {self.max_seq} rows")
+        start = 0
+        for r in self.plan(L):
+            chunk = tokens[:, start:start + r]
+            if r == 1:
+                logits = self.decode.slots[slot](chunk, start)
+                self.decode_chunks += 1
+            else:
+                logits = self.slots[slot][r](chunk, start)
+                self.replays += 1
+            start += r
+        for group in self.caches[slot]:
+            for sub in group.values():
+                if "length" in sub:
+                    sub["length"] = L
+        self.prefills += 1
+        return logits

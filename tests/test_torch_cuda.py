@@ -844,10 +844,162 @@ def test_engine_graphs_under_the_executor_match_eager_steps(cuda, arch):
     graphs = eng.decode_graphs
     assert len(graphs.slots) == 2 and graphs.replays == 4 * 5
     attn, moe = _kernel_layers(cfg)
-    steps = graphs.replays + graphs.warmup_steps
+    # a ladder family's one-token chunks replay the decode graphs too
+    ladder = eng.prefill_graphs
+    assert (ladder is not None) == (arch in LADDER_ARCHS)
+    ones = 0 if ladder is None else ladder.decode_chunks
+    assert ladder is None or ladder.prefills == 4
+    steps = graphs.replays + graphs.warmup_steps + ones
     assert after["decode_attention"] - before["decode_attention"] \
         == attn * steps
     assert after["moe_gating"] - before["moe_gating"] == moe * (steps + 4)
+
+
+def test_a_capture_keeps_the_cyclic_gc_out(cuda):
+    """A dead reference cycle that holds a captured graph (as a served
+    engine and its executor's closures do) is not collected inside a
+    later capture: the allocations of the capture's Python code would
+    trigger an automatic collection, the old graph's reset would run
+    inside the capture, and CUDA would invalidate it."""
+    import gc
+
+    from repro_torch.kernels import GraphLaunches
+
+    class Holder:
+        pass
+
+    x = torch.zeros(4, device=cuda)
+    gc.collect()
+    old = Holder()
+    old.self, old.graph = old, torch.cuda.CUDAGraph()
+    with torch.cuda.graph(old.graph, capture_error_mode="thread_local"):
+        old.out = x + 1
+    del old                 # only the cyclic collector frees it now
+    graph = torch.cuda.CUDAGraph()
+    with GraphLaunches(()).capture(), torch.cuda.graph(
+            graph, capture_error_mode="thread_local"):
+        out = x * 2
+        junk = [[i] for i in range(50_000)]   # past gen 0's threshold
+    assert gc.isenabled() and len(junk) == 50_000
+    x.fill_(3.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.full_like(x, 6.0))
+    gc.collect()
+
+
+# ---------------------------------------------------------------------------
+# the ladder prefill: chunks captured in CUDA graphs at a device offset
+# ---------------------------------------------------------------------------
+#: the reduced families the ladder serves (xLSTM on its canary stack)
+LADDER_ARCHS = ["phi3-mini-3.8b", "qwen2-vl-7b", "musicgen-large",
+                "xlstm-1.3b"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,D", [(32, 32, 96), (28, 4, 128)])
+@pytest.mark.parametrize("Sq", [2, 64, 512])
+@pytest.mark.parametrize("off", [0, 1, 200, 511])
+def test_flash_kernel_at_a_device_offset_matches_plain(cuda, dtype, H, K, D,
+                                                       Sq, off):
+    """phi3's and qwen2-vl's heads: a chunk of Sq rows at a device q offset
+    over a whole 1024-row cache (zero past the chunk, as after a reset)
+    against the plain version at the same device offset, and bit for bit
+    against the kernel at the int offset over the cache's first off + Sq
+    rows (the rows past them are masked in both)."""
+    rng = np.random.default_rng(25)
+    q = _randn(rng, (1, Sq, H, D), dtype, cuda)
+    kc = torch.zeros((1, 1024, K, D), dtype=dtype, device=cuda)
+    vc = torch.zeros((1, 1024, K, D), dtype=dtype, device=cuda)
+    kc[:, :off + Sq] = _randn(rng, (1, off + Sq, K, D), dtype, cuda)
+    vc[:, :off + Sq] = _randn(rng, (1, off + Sq, K, D), dtype, cuda)
+    at = torch.full((1,), off, dtype=torch.long, device=cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, kc, vc, q_offset=at)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _close(out, flash_attention_plain(*_f32(q, kc, vc), q_offset=at), dtype)
+    sliced = flash_attention(q, kc[:, :off + Sq], vc[:, :off + Sq],
+                             q_offset=off)
+    assert torch.equal(out, sliced)
+
+
+def _ladder_rig(cuda, arch, max_seq=48):
+    """A reduced family at f32 with one slot's f32 caches, its decode
+    graph and its ladder (top rung 32 at 48 rows)."""
+    from repro_torch.models import init_cache
+    from repro_torch.serving.graphs import DecodeGraphs, PrefillGraphs
+    cfg, p = _graph_rig(cuda, arch)
+    caches = init_cache(cfg, 1, max_seq, dtype=torch.float32, device=cuda)
+    dec = DecodeGraphs(cfg, p, [caches], cuda)
+    return cfg, p, [caches], dec, PrefillGraphs(cfg, p, [caches], dec,
+                                                max_seq, cuda)
+
+
+@pytest.fixture(scope="module", params=LADDER_ARCHS)
+def ladder(request, cuda):
+    return _ladder_rig(cuda, request.param)
+
+
+@pytest.mark.parametrize("L", [1, 2, 7, 21, 37])
+def test_graphed_ladder_prefill_equals_the_eager_ladder(cuda, ladder, L):
+    """The ladder replayed on a side stream (as the executor's compute
+    stream) gives the eager ``prefill(..., pos=)`` of the same plan bit
+    for bit, logits and every cache, and the slot's decode graph after it
+    the eager decode steps' tokens and logits; each chunk's replay adds
+    what its graph holds to the launch counters: one flash launch per
+    attention layer for a chunk of two tokens or more, one decode launch
+    for a chunk of one."""
+    from repro_torch.models import decode_step, init_cache, reset_cache
+    from repro_torch.serving.graphs import eager_ladder
+    cfg, p, slot_caches, dec, pre = ladder
+    attn, _ = _kernel_layers(cfg)
+    for r, g in pre.slots[0].items():
+        assert g.launches == {"flash_attention": attn, "decode_attention": 0,
+                              "rglru_scan": 0, "moe_gating": 0}, r
+    prompt = torch.as_tensor(np.arange(3, 3 + L) * 7 % cfg.vocab_size,
+                             device=cuda)[None]
+    reset_cache(cfg, slot_caches[0])
+    chunks = pre.plan(L)
+    n_big, n_one = sum(r > 1 for r in chunks), chunks.count(1)
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        before = _launch_counts()
+        glog = pre.prefill(0, prompt).clone()
+        after = _launch_counts()
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    assert after["flash_attention"] - before["flash_attention"] \
+        == attn * n_big
+    assert after["decode_attention"] - before["decode_attention"] \
+        == attn * n_one
+    eager = init_cache(cfg, 1, 48, dtype=torch.float32, device=cuda)
+    elog, eager = eager_ladder(cfg, p, prompt, eager, pre.top)
+    torch.testing.assert_close(glog, elog, rtol=0, atol=0)
+    for got, want in zip(_cache_tensors(slot_caches[0]),
+                         _cache_tensors(eager), strict=True):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    tok = int(glog[0].argmax())
+    for n in range(4):
+        glog = dec.step(0, tok, L + n)
+        elog, eager = decode_step(cfg, p, torch.tensor([tok], device=cuda),
+                                  eager)
+        torch.testing.assert_close(glog, elog, rtol=0, atol=0)
+        tok = int(glog[0].argmax())
+
+
+def _cache_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _cache_tensors(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _cache_tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def test_ladder_refuses_a_prompt_past_the_caches(cuda, ladder):
+    _, _, _, _, pre = ladder
+    with pytest.raises(ValueError, match="prompt of 49 tokens"):
+        pre.prefill(0, np.zeros(49, np.int64))
 
 
 # ---------------------------------------------------------------------------
