@@ -33,11 +33,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    twice), deepseek-v2, qwen2-vl and musicgen served on the card and on
    the CPU (plain kernels) give the same greedy tokens, and on the card
    the decode step replayed from its CUDA graph gives the eager step's
-   tokens and logits, and for the families the ladder serves (phi3,
-   xLSTM, qwen2-vl, musicgen) the prompt replayed as a ladder of graphed
-   chunks (32 + 4 + 1) and the graphed steps give the CPU's tokens and
-   logits; qwen2-vl's prefill of stub patch embeddings at distinct (t, h,
-   w) positions gives the CPU's logits;
+   tokens and logits, and the prompt replayed as a ladder of graphed
+   chunks (32 + 4 + 1: phi3, xLSTM, qwen2-vl, musicgen) or as one graphed
+   pass padded to its 64-row bucket (recurrentgemma, past its 32-row
+   ring; llama4; deepseek-v2) and the graphed steps give the CPU's tokens
+   and logits; qwen2-vl's prefill of stub patch embeddings at distinct
+   (t, h, w) positions gives the CPU's logits;
 5. serve, seven paths, each through ``repro_torch.launch.serve.serve``
    and the Executor over ``cuda:0`` with random weights from seed 0, 4
    slots and 16 new tokens per request, every decode step replayed from
@@ -48,7 +49,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    graphed chunks (``PrefillGraphs``, rungs 2-512; a chunk of one token
    is a replay of the slot's decode graph), and there "prefills" counts
    the chunks of two tokens or more and the ladder's eager warm-up
-   chunks (one per rung), "decode steps" also the chunks of one:
+   chunks (one per rung), "decode steps" also the chunks of one;
+   recurrentgemma-2b, llama4 and deepseek-v2 prefill every request as
+   one graphed pass padded to a bucket (``BucketPrefillGraphs``, the
+   powers of two from 16 to max_seq), and there "prefills" counts the
+   requests and the eager warm-up passes (one per bucket):
    - phi3-mini-3.8b, full width and depth: 6 requests of 64-512 prompt
      tokens, max_seq 1024; flash = 32 × prefills, decode = 32 × decode
      steps;
@@ -83,17 +88,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against the one-shot prefill at f32 compute (LOGIT_ATOL, the same
    tokens) and printed at the served bf16; the second chunk's launches
    (flash = the attention layers, through the q offset) are a path of
-   their own.  For the four ladder families, on the served engine, the
-   same call's A B B A of the eager one-shot prefill (A) against the
-   ladder (B): the engine's TTFT p50/p99, tokens/s and peak memory over
-   the 6 requests, the median prefill alone on one slot, the ladder's
-   chunks per prompt and capture seconds, each graphed prefill's device
-   time against its bytes bound (chunks × the weights a pass reads), and
-   every graphed prefill bit-identical (logits and caches) to the eager
-   chunks of its plan; then at f32 compute (xLSTM on its canary stack) a
-   437-token prompt's ladder (256 + 128 + 32 + 16 + 4 + 1) and 8 graphed
+   their own.  For all seven, on the served engine, the same call's A B
+   B A of the eager one-shot prefill (A) against the graphed prefill (B):
+   the engine's TTFT and ITL p50/p99, tokens/s and peak memory over the
+   requests, the median prefill alone on one slot, the ladder's chunks
+   per prompt (or the bucket) and the capture seconds, each graphed
+   prefill's device time against its bytes bound (chunks, or one pass,
+   × the weights a pass reads), and every graphed prefill bit-identical
+   (logits and caches) to the eager chunks of its plan or the eager
+   padded prefill of its bucket; then at f32 compute a 437-token
+   prompt's ladder (256 + 128 + 32 + 16 + 4 + 1; phi3, qwen2-vl,
+   musicgen, xLSTM on its canary stack) or bucket (512; deepseek-v2),
+   and recurrentgemma's 3000 tokens in the bucket of 4096, and 8 graphed
    steps within LOGIT_ATOL of the one-shot prefill and its eager steps,
-   the same greedy tokens.  Each path frees its weights before the next.
+   the same greedy tokens (llama4 has no f32 check: an f32 copy of its
+   experts is 64 GB).  Each path frees its weights before the next.
 
 6. train, five paths, each through ``repro_torch.launch.train.train``
    (the reference launcher's graph: host(data) → pull(batch) →
@@ -883,9 +892,11 @@ def reference_phase(torch, dev) -> None:
     sLSTM block, twice): its reduced 16-block stack turns a last-bit
     difference into logit differences past a greedy margin.  On the card,
     a decode step replayed from its CUDA graph gives the eager step's
-    tokens and logits bit for bit, and where the family takes the ladder
-    the prompt replayed from its ``PrefillGraphs`` and the graphed steps
-    give the CPU's tokens, logits within LOGIT_ATOL.  qwen2-vl also
+    tokens and logits bit for bit, and the prompt replayed from its
+    ``PrefillGraphs`` where the family takes the ladder, else from its
+    ``BucketPrefillGraphs`` (37 tokens in the 64-row bucket, past the
+    reduced 32-row ring), and the graphed steps give the CPU's tokens,
+    logits within LOGIT_ATOL.  qwen2-vl also
     prefills stub patch embeddings at distinct (t, h, w) positions, card
     against CPU."""
     from repro_torch.configs import get_config, reduced
@@ -893,7 +904,8 @@ def reference_phase(torch, dev) -> None:
     from repro_torch.models import (cast_params, decode_step, init_cache,
                                     init_params, prefill, reset_cache)
     from repro_torch.models.transformer import takes_ladder
-    from repro_torch.serving.graphs import DecodeGraphs, PrefillGraphs
+    from repro_torch.serving.graphs import (BucketPrefillGraphs, DecodeGraphs,
+                                            PrefillGraphs)
 
     cpu = torch.device("cpu")
     canary = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
@@ -938,24 +950,28 @@ def reference_phase(torch, dev) -> None:
         if toks != gt or diff != 0.0:
             raise AssertionError(f"{arch}: the graphed decode steps differ "
                                  f"from the eager ones")
+        # the prompt as the engine serves it on the card: a ladder of
+        # graphed chunks (37 = 32 + 4 + 1 on 64 rows), or one graphed
+        # pass padded to its bucket (64)
         if takes_ladder(cfg):
-            # the prompt as the engine serves it on the card: a ladder of
-            # graphed chunks (37 = 32 + 4 + 1 on 64 rows)
-            ladder = PrefillGraphs(cfg, p, [caches], graphs, 64, dev)
-            reset_cache(cfg, caches)
-            logits = ladder.prefill(0, prompt)
-            toks, all_logits = [int(logits[0].argmax())], [logits.cpu()]
-            for n in range(8):
-                logits = graphs.step(0, toks[-1], len(prompt) + n)
-                toks.append(int(logits[0].argmax()))
-                all_logits.append(logits.cpu())
-            err = float((torch.cat(all_logits) - cl).abs().max())
-            print(f"  ladder prefill {ladder.plan(len(prompt))} on the card, "
-                  f"graphed: tokens {toks}; max logit diff to the cpu's "
-                  f"one-shot prefill and steps {err}")
-            if toks != ct or err > LOGIT_ATOL:
-                raise AssertionError(f"{arch}: the card's ladder prefill "
-                                     f"differs from the CPU's prefill")
+            pre = PrefillGraphs(cfg, p, [caches], graphs, 64, dev)
+            how = f"ladder prefill {pre.plan(len(prompt))}"
+        else:
+            pre = BucketPrefillGraphs(cfg, p, [caches], graphs, 64, dev)
+            how = f"bucket prefill in {pre.bucket(len(prompt))} rows"
+        reset_cache(cfg, caches)
+        logits = pre.prefill(0, prompt)
+        toks, all_logits = [int(logits[0].argmax())], [logits.cpu()]
+        for n in range(8):
+            logits = graphs.step(0, toks[-1], len(prompt) + n)
+            toks.append(int(logits[0].argmax()))
+            all_logits.append(logits.cpu())
+        err = float((torch.cat(all_logits) - cl).abs().max())
+        print(f"  {how} on the card, graphed: tokens {toks}; max logit diff "
+              f"to the cpu's one-shot prefill and steps {err}")
+        if toks != ct or err > LOGIT_ATOL:
+            raise AssertionError(f"{arch}: the card's graphed prefill "
+                                 f"differs from the CPU's prefill")
         if arch == QWEN2VL:
             _patch_prefill(torch, cfg, params, prompt, dev)
 
@@ -1181,7 +1197,7 @@ MFU_PEAK = PEAK_FLOPS["bfloat16"]
 
 def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
                 chunked: bool = False,
-                ladder_f32: bool = False) -> tuple[dict, int, int, dict]:
+                ladder_f32: int = 0) -> tuple[dict, int, int, dict]:
     """Serve ``cfg`` (full width, random weights from seed 0) through
     ``serve()`` and the Executor over ``dev``: prompts of ``lengths``
     tokens (the sixth gets the first one's prompt; for the audio stub,
@@ -1191,22 +1207,27 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
     request ``long_prompt``, default the second) and decode step give
     finite logits of the vocabulary's width, the prefill's token the
     engine's.  ``chunked``: then :func:`chunked_prefill_phase` on the same
-    weights.  A family the ladder serves (``transformer.takes_ladder``)
-    prefills every request from its ``PrefillGraphs``; then
-    :func:`ladder_ab` on the same engine, and with ``ladder_f32``
-    :func:`ladder_f32_phase` on the same weights.  Returns the kernels' launch counts of the serving run, its
-    prefill passes that launch the flash kernel (the requests, or the
-    ladder's chunks of two tokens or more and its eager warm-up chunks,
-    one per rung), its decode steps (the replays, the engine's warm-up
-    step and the ladder's one-token chunks) and the chunked prefill's second chunk's
-    counts (or None)."""
+    weights.  Every request prefills from the engine's graphs: a family
+    the ladder serves (``transformer.takes_ladder``) from its
+    ``PrefillGraphs``, the others from their ``BucketPrefillGraphs``;
+    then :func:`ladder_ab` on the same engine, and with ``ladder_f32`` (a
+    prompt length) :func:`ladder_f32_phase` on the same weights.  Returns
+    the kernels' launch counts of the serving run, its prefill passes
+    (each launches
+    the flash kernel once per attention layer, the scan once per RG-LRU
+    layer and the gating once per MoE layer: the ladder's chunks of two
+    tokens or more and its eager warm-up chunks, one per rung; or the
+    requests' buckets and the eager warm-up passes, one per bucket), its
+    decode steps (the replays, the engine's warm-up step and the ladder's
+    one-token chunks) and the chunked prefill's second chunk's counts (or
+    None)."""
     import numpy as np
 
     from repro_torch.launch.serve import graph_report, serve
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill, reset_cache)
     from repro_torch.models.frontends import make_audio_tokens
-    from repro_torch.serving.graphs import DecodeGraphs
+    from repro_torch.serving.graphs import BucketPrefillGraphs, DecodeGraphs
 
     max_new = 16
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1259,18 +1280,23 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
                              f"steps")
     print(graph_report(eng))
     ladder = eng.prefill_graphs
-    flash_passes, ones = len(done), 0
-    if ladder is not None:
+    if ladder.prefills != len(done):
+        raise AssertionError(f"{ladder.prefills} graphed prefills for "
+                             f"{len(done)} requests")
+    if isinstance(ladder, BucketPrefillGraphs):
+        print(f"prefill buckets: {[ladder.bucket(len(q)) for q in prompts]} "
+              f"for prompts of {[len(q) for q in prompts]} tokens; launches "
+              f"per replay {ladder.slots[0][ladder.sizes[-1]].launches} "
+              f"(every bucket)")
+        flash_passes, ones = ladder.prefills + ladder.warmups, 0
+    else:
         print(f"prefill ladder: chunks per prompt "
               f"{[len(ladder.plan(len(q))) for q in prompts]} "
               f"({[ladder.plan(len(q)) for q in prompts]}); launches per "
               f"replay {ladder.slots[0][ladder.top].launches} (every rung)")
-        if ladder.prefills != len(done):
-            raise AssertionError(f"{ladder.prefills} ladder prefills for "
-                                 f"{len(done)} requests")
         flash_passes = ladder.replays + ladder.warmup_chunks
         ones = ladder.decode_chunks
-        ladder_ab(torch, dev, eng, prompts, max_new)
+    ladder_ab(torch, dev, eng, prompts, max_new)
 
     p = eng.params
     del eng, graphs, ladder
@@ -1312,7 +1338,7 @@ def serve_phase(torch, dev, cfg, lengths, max_seq, *, long_prompt=None,
     if chunked:
         chunk = chunked_prefill_phase(torch, dev, cfg, params, p, max_seq)
     if ladder_f32:
-        ladder_f32_phase(torch, dev, cfg, params, max_seq)
+        ladder_f32_phase(torch, dev, cfg, params, max_seq, ladder_f32)
     return (counts, flash_passes, steps + DecodeGraphs.warmup_steps + ones,
             chunk)
 
@@ -1324,34 +1350,41 @@ def _nearest_rank(xs, pct: float) -> float:
 
 
 def ladder_ab(torch, dev, eng, prompts, max_new: int) -> None:
-    """The ladder against the eager one-shot prefill, in the same call, A
-    B B A (A eager, B graphed), on the engine just served:
+    """The graphed prefill (a ladder of chunks, or one pass padded to a
+    bucket) against the eager one-shot prefill, in the same call, A B B A
+    (A eager, B graphed), on the engine just served:
 
     - the engine itself under a fresh Executor, its ``prefill_graphs``
-      set aside for A: the 6 requests of ``prompts`` with ``max_new``
+      set aside for A: the requests of ``prompts`` with ``max_new``
       tokens each per run; TTFT p50/p99 (nearest rank over both runs of
-      a mode, from each request's arrival and first token), tokens/s,
+      a mode, from each request's arrival and first token), ITL p50/p99
+      (the engine's ``itl_s`` samples of both runs), tokens/s,
       ``max_memory_allocated``; greedy tokens equal between the two runs
       of a mode;
     - the prefill alone on slot 0 (reset before each): the wall of each
       prompt's prefill, ended by a synchronise, the median over both runs
       of a mode;
-    - the graphed ladder's device time per prompt (CUDA events, the
+    - the graphed prefill's device time per prompt (CUDA events, the
       chunks enqueued behind a device sleep), against its bytes bound:
-      chunks × the weights one pass reads at the compute dtype / 3.35
-      TB/s;
+      passes (the ladder's chunks, or 1) × the weights one pass reads at
+      the compute dtype / 3.35 TB/s;
     - the graphed logits and every cache bit-identical to the eager
-      chunks of the same plan (``eager_ladder``) on fresh caches."""
+      chunks of the same plan (``eager_ladder``), or the eager padded
+      prefill of the same bucket (``eager_bucket``), on fresh caches."""
     from repro_torch.core import Executor
     from repro_torch.models import init_cache, prefill, reset_cache
-    from repro_torch.serving.graphs import eager_ladder
+    from repro_torch.serving.graphs import (BucketPrefillGraphs, eager_bucket,
+                                            eager_ladder)
 
     cfg, p, ladder = eng.cfg, eng.params, eng.prefill_graphs
+    bucketed = isinstance(ladder, BucketPrefillGraphs)
+    kind = "bucket" if bucketed else "ladder"
     caches = eng._caches[0]
     tokens = [torch.as_tensor(q[None], dtype=torch.long, device=dev)
               for q in prompts]
     served = {"eager": [], "graphed": []}
     alone = {"eager": [], "graphed": []}
+    itl = eng.metrics.histogram("itl_s")
     order = ("eager", "graphed", "graphed", "eager")
     with Executor(num_workers=2, devices=[dev]) as ex:
         eng.executor = ex
@@ -1359,7 +1392,7 @@ def ladder_ab(torch, dev, eng, prompts, max_new: int) -> None:
             eng.prefill_graphs = ladder if mode == "graphed" else None
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            n0 = len(eng.completed)
+            n0, i0 = len(eng.completed), len(itl.samples)
             t0 = time.perf_counter()
             for q in prompts:
                 eng.submit(q, max_new_tokens=max_new)
@@ -1369,6 +1402,7 @@ def ladder_ab(torch, dev, eng, prompts, max_new: int) -> None:
             served[mode].append({
                 "wall": wall, "tokens": sum(len(r.generated) for r in done),
                 "ttft": [r.first_token_s - r.arrival_s for r in done],
+                "itl": itl.samples[i0:],
                 "gen": [r.generated for r in sorted(done,
                                                     key=lambda r: r.id)],
                 "peak": torch.cuda.max_memory_allocated(dev)})
@@ -1393,10 +1427,12 @@ def ladder_ab(torch, dev, eng, prompts, max_new: int) -> None:
         if a["gen"] != b["gen"]:
             raise AssertionError(f"{cfg.arch_id}: two {mode} runs of the "
                                  f"same requests gave other tokens")
-        ttft = a["ttft"] + b["ttft"]
+        ttft, gaps = a["ttft"] + b["ttft"], a["itl"] + b["itl"]
         walls = [x for run, _ in alone[mode] for x in run]
-        print(f"ladder A B B A {cfg.arch_id}, {mode} prefill: TTFT p50 "
+        print(f"{kind} A B B A {cfg.arch_id}, {mode} prefill: TTFT p50 "
               f"{_nearest_rank(ttft, 50)} p99 {_nearest_rank(ttft, 99)} s; "
+              f"ITL p50 {_nearest_rank(gaps, 50)} p99 "
+              f"{_nearest_rank(gaps, 99)} s; "
               f"tokens/s {[r['tokens'] / r['wall'] for r in served[mode]]}; "
               f"peak GB served {[r['peak'] / 1e9 for r in served[mode]]}, "
               f"prefill alone {[pk / 1e9 for _, pk in alone[mode]]}; "
@@ -1404,14 +1440,14 @@ def ladder_ab(torch, dev, eng, prompts, max_new: int) -> None:
               f"prompt, runs {[run for run, _ in alone[mode]]})")
     same = served["eager"][0]["gen"] == served["graphed"][0]["gen"]
     print(f"  greedy tokens of the eager and the graphed runs equal: {same} "
-          f"({cfg.compute_dtype}: the chunks sum in another order than "
-          f"the one-shot prefill)")
+          f"({cfg.compute_dtype}: the {kind} sums in another order than "
+          f"the one-shot prefill); capture {ladder.capture_seconds} s")
 
     weights = _tree_bytes(p["groups"]) + _tree_bytes(
         p.get("lm_head", p["embed"]))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for q, t in zip(prompts, tokens):
-        chunks = ladder.plan(len(q))
+        chunks = [ladder.bucket(len(q))] if bucketed else ladder.plan(len(q))
         reset_cache(cfg, caches)
         flush.zero_()
         torch.cuda.synchronize(dev)
@@ -1422,23 +1458,30 @@ def ladder_ab(torch, dev, eng, prompts, max_new: int) -> None:
         e.record()
         torch.cuda.synchronize(dev)
         bound = len(chunks) * weights / HBM_BYTES_S * 1e3
-        print(f"  graphed prefill of {len(q)} tokens, chunks {chunks}: "
-              f"device {s.elapsed_time(e)} ms, bytes bound {bound} ms "
+        print(f"  graphed prefill of {len(q)} tokens, "
+              f"{'bucket' if bucketed else 'chunks'} {chunks}: device "
+              f"{s.elapsed_time(e)} ms, bytes bound {bound} ms "
               f"({len(chunks)} x {weights} B of weights)")
     for q, t in zip(prompts, tokens):
         reset_cache(cfg, caches)
         got = ladder.prefill(0, t).clone()
         fresh = init_cache(cfg, 1, ladder.max_seq, device=dev)
-        want, fresh = eager_ladder(cfg, p, t, fresh, ladder.top)
+        if bucketed:
+            want, fresh = eager_bucket(cfg, p, t, fresh,
+                                       ladder.bucket(len(q)))
+        else:
+            want, fresh = eager_ladder(cfg, p, t, fresh, ladder.top)
         same = torch.equal(got, want) and all(
             torch.equal(a, b) for a, b in zip(_leaves(caches),
                                                _leaves(fresh), strict=True))
         if not same:
-            raise AssertionError(f"{cfg.arch_id}: the graphed ladder of "
-                                 f"{len(q)} tokens differs from the eager "
-                                 f"chunks of its plan")
-    print(f"  graphed logits and caches bit-identical to the eager chunks "
-          f"of the same plan for all {len(prompts)} prompts")
+            raise AssertionError(f"{cfg.arch_id}: the graphed {kind} "
+                                 f"prefill of {len(q)} tokens differs from "
+                                 f"its eager twin")
+    twin = ("padded prefill of the same bucket" if bucketed
+            else "chunks of the same plan")
+    print(f"  graphed logits and caches bit-identical to the eager {twin} "
+          f"for all {len(prompts)} prompts")
 
 
 def _leaves(tree):
@@ -1449,29 +1492,39 @@ def _leaves(tree):
     return [tree] if hasattr(tree, "data_ptr") else []
 
 
-def ladder_f32_phase(torch, dev, cfg, params, max_seq: int) -> None:
-    """The ladder at f32 compute (``params``, the f32 masters, and f32
-    caches) on one slot: a 437-token prompt (256 + 128 + 32 + 16 + 4 + 1
-    at max_seq 1024) replayed from its graphs and 8 greedy steps from the
-    slot's decode graph, against the eager one-shot prefill of the same
-    prompt and its 8 eager steps: logits within LOGIT_ATOL (where a
-    recurrent state carries the chunks' difference into the steps,
-    xLSTM, the prefill's), the same greedy tokens; and the graphed
-    prefill's logits bit-identical to the eager chunks of its plan."""
+def ladder_f32_phase(torch, dev, cfg, params, max_seq: int,
+                     length: int = 437) -> None:
+    """The graphed prefill at f32 compute (``params``, the f32 masters,
+    and f32 caches) on one slot: a ``length``-token prompt (437: 256 +
+    128 + 32 + 16 + 4 + 1 on the ladder at max_seq 1024, or one pass in
+    the bucket of 512) replayed from its graphs and 8 greedy steps from
+    the slot's decode graph, against the eager one-shot prefill of the
+    same prompt and its 8 eager steps: logits within LOGIT_ATOL (where a
+    recurrent state carries the prefill's difference into the steps,
+    xLSTM and RG-LRU, the prefill's), the same greedy tokens; and the
+    graphed prefill's logits bit-identical to its eager twin (the chunks
+    of its plan, or the padded prefill of its bucket)."""
     import numpy as np
 
     from repro_torch.models import (cast_params, decode_step, init_cache,
                                     prefill, reset_cache)
-    from repro_torch.serving.graphs import (DecodeGraphs, PrefillGraphs,
+    from repro_torch.models.transformer import takes_ladder
+    from repro_torch.serving.graphs import (BucketPrefillGraphs, DecodeGraphs,
+                                            PrefillGraphs, eager_bucket,
                                             eager_ladder)
 
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
     p32 = cast_params(c32, params)
     prompt = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (1, 437)), device=dev)
+        0, cfg.vocab_size, (1, length)), device=dev)
     caches = init_cache(c32, 1, max_seq, dtype=torch.float32, device=dev)
     dec = DecodeGraphs(c32, p32, [caches], dev)
-    ladder = PrefillGraphs(c32, p32, [caches], dec, max_seq, dev)
+    if takes_ladder(cfg):
+        ladder = PrefillGraphs(c32, p32, [caches], dec, max_seq, dev)
+        how, kind = f"ladder {ladder.plan(length)}", "ladder"
+    else:
+        ladder = BucketPrefillGraphs(c32, p32, [caches], dec, max_seq, dev)
+        how, kind = f"bucket of {ladder.bucket(length)}", "bucket"
     reset_cache(c32, caches)
     logits = ladder.prefill(0, prompt).clone()
     gt, gl = [int(logits[0].argmax())], [logits]
@@ -1481,7 +1534,10 @@ def ladder_f32_phase(torch, dev, cfg, params, max_seq: int) -> None:
         gl.append(logits)
     gl = torch.cat(gl)
     fresh = init_cache(c32, 1, max_seq, dtype=torch.float32, device=dev)
-    same, _ = eager_ladder(c32, p32, prompt, fresh, ladder.top)
+    if kind == "bucket":
+        same, _ = eager_bucket(c32, p32, prompt, fresh, ladder.bucket(length))
+    else:
+        same, _ = eager_ladder(c32, p32, prompt, fresh, ladder.top)
     fresh = init_cache(c32, 1, max_seq, dtype=torch.float32, device=dev)
     logits, fresh = prefill(c32, p32, prompt, fresh)
     ot, ol = [int(logits[0].argmax())], [logits]
@@ -1496,17 +1552,17 @@ def ladder_f32_phase(torch, dev, cfg, params, max_seq: int) -> None:
     recurrent = any(m in ("mlstm", "slstm", "rglru")
                     for g in cfg.groups for m in g.pattern)
     bitwise = torch.equal(gl[:1], same)
-    print(f"ladder prefill {cfg.arch_id} ({cfg.n_layers} layers), f32, "
-          f"graphed {ladder.plan(prompt.shape[1])} (captured in "
+    print(f"{kind} prefill {cfg.arch_id} ({cfg.n_layers} layers), f32, "
+          f"{length} tokens graphed as the {how} (captured in "
           f"{ladder.capture_seconds} s): tokens {gt}, one-shot {ot}; max "
           f"logit diff {err}, of the prefill {first} (tol {LOGIT_ATOL}"
           f"{', the prefill held' if recurrent else ''}); bit-identical to "
-          f"the eager chunks {bitwise}")
+          f"the eager twin {bitwise}")
     if gt != ot or max(first, 0.0 if recurrent else err) > LOGIT_ATOL \
             or not bitwise:
-        raise AssertionError(f"{cfg.arch_id}: the f32 ladder prefill "
+        raise AssertionError(f"{cfg.arch_id}: the f32 {kind} prefill "
                              f"differs from the one-shot prefill or from "
-                             f"its eager chunks")
+                             f"its eager twin")
 
 
 def chunked_prefill_phase(torch, dev, cfg, params, served,
@@ -2050,7 +2106,7 @@ def moe_ep_case(torch, dev, card: str, mesh) -> dict:
         torch.cuda.synchronize(dev)
         times[name] = (time.perf_counter() - t0) / 5 * 1e3
     # the dispatch buffer's all_to_all alone, on the card's clock
-    buf = torch.zeros((cfg.moe.n_experts, M._capacity(cfg, 512),
+    buf = torch.zeros((cfg.moe.n_experts, M.capacity(cfg, 512),
                        cfg.d_model), dtype=cdt, device=dev)
     a2a_ms = _median_ms(torch, lambda: M._all_to_all(buf, mesh, "model", 0,
                                                      1), flush=buf, reps=5)
@@ -2623,14 +2679,18 @@ def main() -> int:
     path(PHI3, phi3, [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 32 * p, "decode_attention": 32 * s,
                        "rglru_scan": 0, "moe_gating": 0},
-         chunk_want={"flash_attention": 32}, ladder_f32=True)
+         chunk_want={"flash_attention": 32}, ladder_f32=437)
     # recurrentgemma-2b: 18 RG-LRU and 8 local-attention layers; the
-    # 3000-token prompt is masked by the 2048 window and wraps the ring
+    # 3000-token prompt is masked by the 2048 window and wraps the ring.
+    # Bucketed: p = the 7 requests' passes + 9 warm-up passes (buckets
+    # 16-4096); its f32 check pads 3000 tokens to 4096 past the ring
     path(RG, get_config(RG), [64, 512, 300, 137, 450, 64, 3000], 4096,
          lambda p, s: {"flash_attention": 8 * p, "decode_attention": 8 * s,
                        "rglru_scan": 18 * p, "moe_gating": 0},
-         long_prompt=6)
-    # llama4-maverick at full width, 1 layer of 48, bf16 weights
+         long_prompt=6, ladder_f32=3000)
+    # llama4-maverick at full width, 1 layer of 48, bf16 weights; bucketed:
+    # p = the 6 requests' passes + 7 warm-up passes (buckets 16-1024); no
+    # f32 check (an f32 copy of its 128 experts is 64 GB)
     llama4 = dataclasses.replace(
         get_config(LLAMA4), param_dtype="bfloat16",
         groups=(LayerGroup(pattern=("attn",), count=1, ffn="moe"),))
@@ -2659,7 +2719,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # deepseek-v2 at full width, 2 layers of 60 (the dense first layer and
     # one MoE layer of 160 experts top-6 + 2 shared), f32 weights: MLA
-    # attends at q/k 192, v 128
+    # attends at q/k 192, v 128; bucketed: p = the 6 requests' passes + 7
+    # warm-up passes
     dsv2 = get_config(DSV2)
     dsv2 = dataclasses.replace(dsv2, groups=(
         dataclasses.replace(dsv2.groups[0], count=1),
@@ -2667,18 +2728,18 @@ def main() -> int:
     path(DSV2, dsv2, [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 2 * p, "decode_attention": 2 * s,
                        "rglru_scan": 0, "moe_gating": p + s},
-         chunk_want={"flash_attention": 2, "moe_gating": 1})
+         chunk_want={"flash_attention": 2, "moe_gating": 1}, ladder_f32=437)
     # qwen2-vl-7b: 28 attention layers (M-RoPE, GQA 28/4), f32, text
     # prompts as the reference's engine serves
     path(QWEN2VL, get_config(QWEN2VL), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 28 * p, "decode_attention": 28 * s,
                        "rglru_scan": 0, "moe_gating": 0},
-         chunk_want={"flash_attention": 28}, ladder_f32=True)
+         chunk_want={"flash_attention": 28}, ladder_f32=437)
     # musicgen-large: 48 attention layers (MHA, D 64), f32, prompts of
     # stub EnCodec ids
     path(MUSICGEN, get_config(MUSICGEN), [64, 512, 300, 137, 450, 64], 1024,
          lambda p, s: {"flash_attention": 48 * p, "decode_attention": 48 * s,
-                       "rglru_scan": 0, "moe_gating": 0}, ladder_f32=True)
+                       "rglru_scan": 0, "moe_gating": 0}, ladder_f32=437)
 
     def trained(name, cfg, batch, seq, steps, per_step, cut="nothing cut"):
         counts = train_phase(torch, dev, cfg, batch=batch, seq=seq,

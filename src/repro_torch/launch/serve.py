@@ -20,6 +20,7 @@ from ..configs import ModelConfig, get_config, list_archs, reduced as reduce_cfg
 from ..core import Executor
 from ..models import init_params
 from ..serving import ServingEngine
+from ..serving.graphs import BucketPrefillGraphs
 
 __all__ = ["graph_report", "serve", "main"]
 
@@ -81,8 +82,8 @@ def main(argv=None) -> int:
 
 def graph_report(eng: ServingEngine) -> str:
     """One line on the engine's CUDA graphs: the decode graphs' and the
-    prefill ladder's capture seconds and replays (eager where a path has
-    none)."""
+    prefill graphs' (a ladder or buckets) capture seconds and replays, or
+    that both are eager (on the CPU)."""
     dec, pre = eng.decode_graphs, eng.prefill_graphs
     if dec is None:
         return "graphs: none (eager prefill and decode)"
@@ -90,6 +91,11 @@ def graph_report(eng: ServingEngine) -> str:
             f"{dec.capture_seconds:.3f}s, {dec.replays} replays; ")
     if pre is None:
         return line + "prefill eager"
+    if isinstance(pre, BucketPrefillGraphs):
+        return line + (f"prefill graphs: buckets {pre.sizes[0]}-"
+                       f"{pre.sizes[-1]} x {len(pre.slots)} slots captured "
+                       f"in {pre.capture_seconds:.3f}s, {pre.prefills} "
+                       f"prefills in {pre.bucket_tokens} bucket rows")
     return line + (f"prefill graphs: rungs 2-{pre.top} x {len(pre.slots)} "
                    f"slots captured in {pre.capture_seconds:.3f}s, "
                    f"{pre.prefills} prefills in {pre.replays} chunk "

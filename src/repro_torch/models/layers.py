@@ -153,7 +153,7 @@ def init_attn(cfg, gen: torch.Generator, device, count: int = 1,
 
 
 def attn_forward(cfg, p: Params, x, positions, cache=None, *,
-                 local: bool = False, step=None):
+                 local: bool = False, step=None, valid=None):
     """x: (B, S, d).  cache: dict(k, v, length) of one layer, or None.
 
     Returns (out, new_cache).  KV cache layout: (B, S_max, K, hd); the
@@ -176,6 +176,10 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
     reference's (``layers.py`` ring branch).  A ring takes a prompt at
     length 0 only: the reference's ring prefill assumes it ("length
     assumed 0") and would drop the tokens already in the ring.
+    ``valid``: a prompt at length 0 padded at its tail, its true length
+    as a (1,) int64 device tensor: the causal mask keeps every real row
+    exact, the pad rows land past the real ones, and a ring takes the
+    last real rows (:func:`_ring_fill`).
     """
     B, S, d = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -240,7 +244,7 @@ def attn_forward(cfg, p: Params, x, positions, cache=None, *,
                     "the reference's ring prefill assumes length 0 and "
                     "drops the ring's earlier tokens; see ROADMAP.md")
             out = attention(q, k, v, causal=True, window=window)
-            _ring_fill(k_cache, v_cache, k, v)
+            _ring_fill(k_cache, v_cache, k, v, valid)
         else:
             end = _prompt_rows(k_cache, length, S)
             k_cache[:, length:end] = k.to(k_cache.dtype)
@@ -270,11 +274,25 @@ def _prompt_rows(cache_t, length: int, S: int) -> int:
     return end
 
 
-def _ring_fill(k_cache, v_cache, k, v) -> None:
+def _ring_fill(k_cache, v_cache, k, v, valid=None) -> None:
     """A fresh prefill's last min(S, W) k/v rows into a ring of W rows, at
     their slots ``(S - tail .. S - 1) % W``: a rotation done as two
-    slices."""
+    slices.
+
+    ``valid``: the rows are padded past their first ``valid`` (a (1,)
+    int64 device tensor).  Where S <= W the rotation above is right: the
+    pad rows land past the real ones, where decode masks them and then
+    writes over them.  Where S > W, slot s takes the last real row p <
+    valid with p = s (mod W), one gather of W rows (a slot no real row
+    reaches, s >= valid, takes its own row s, masked as above)."""
     S, W = k.shape[1], k_cache.shape[1]
+    if valid is not None and S > W:
+        s = torch.arange(W, device=k.device)
+        rows = valid - 1 - torch.remainder(valid - 1 - s, W)
+        rows = torch.where(rows < 0, s, rows)
+        for cache_t, new in ((k_cache, k), (v_cache, v)):
+            cache_t.copy_(new.index_select(1, rows))
+        return
     tail = min(S, W)
     start = (S - tail) % W
     first = min(tail, W - start)

@@ -75,24 +75,34 @@ def init_moe(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
     return p
 
 
-def _capacity(cfg, n_tokens: int) -> int:
+def capacity(cfg, n_tokens: int) -> int:
+    """C: the slots each expert holds for a group of ``n_tokens`` tokens,
+    as the reference sizes them."""
     m = cfg.moe
     c = int(m.capacity_factor * n_tokens * m.top_k / m.n_experts)
     return max(8, -(-c // 8) * 8)   # round up to 8, as the reference
 
 
-def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False):
+def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False,
+                    valid=None):
     """Route one token group.  xg: (Tg, d) in the compute dtype;
     router_w: f32 (d, E) (the reference's ``router.astype(f32)``, so the
     logits are the f32 product of the two, as its promoted
     ``(xg @ router_w).astype(f32)``).
+
+    ``valid``: a group padded at its tail, as (n, C(n)), (1,) int64
+    device tensors: its first n tokens are the real ones and C(n) their
+    capacity.  The slots are handed out first come, first served, so the
+    real entries' positions are those of the n tokens alone; the buffer
+    keeps the padded group's C, and an entry is kept only from a real
+    token at a position below C(n), as the n tokens alone would keep it.
 
     Returns (buf (E, C, d), slot, keep, gate, aux), the entries in
     flattened (token, k) order; the load-balance ``aux`` is None unless
     asked for."""
     m = cfg.moe
     Tg, d = xg.shape
-    C = _capacity(cfg, Tg)
+    C = capacity(cfg, Tg)
     if is_dtensor(xg):
         # sharded tokens (a mesh of more ranks): the capacity slots run
         # across every token of the group, so each rank routes it whole
@@ -111,6 +121,10 @@ def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False):
     slot = slots.reshape(-1).long()
     keep = keep.reshape(-1)
     src = torch.arange(Tg, device=xg.device).repeat_interleave(m.top_k)
+    if valid is not None:
+        n, cap = valid
+        at = slot - eids.reshape(-1).long() * C
+        keep = keep & (at < cap) & (src < n)
     src = torch.where(keep, src, 0)
     gathered = torch.where(keep[:, None], xg[src].to(cdt), 0)
     buf = torch.zeros((m.n_experts * C, d), dtype=cdt, device=xg.device)
@@ -140,15 +154,15 @@ def _group_combine(ex_out_g, slot, keep, gate, Tg, k, d):
     return contrib.reshape(Tg, k, d).sum(1)
 
 
-def _moe_local(cfg, p: Params, x, cdt, aux: bool = False):
+def _moe_local(cfg, p: Params, x, cdt, aux: bool = False, valid=None):
     """Single-device path.  x: (B, S, d) → (B, S, d), aux (None unless
-    asked for)."""
+    asked for); ``valid`` as :func:`_group_dispatch` takes it."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     buf, slot, keep, gate, aux = _group_dispatch(
-        cfg, p["router"].float(), xt, cdt, aux)
+        cfg, p["router"].float(), xt, cdt, aux, valid)
     w = p["experts"]
     gg = F.silu(torch.bmm(buf, w["w_gate"].to(cdt)))
     uu = torch.bmm(buf, w["w_up"].to(cdt))
@@ -263,13 +277,18 @@ def _moe_shard_map(cfg, p: Params, x, cdt, mesh, baxes, maxis,
     return out, aux_v
 
 
-def moe_forward(cfg, p: Params, x, *, aux: bool = False):
+def moe_forward(cfg, p: Params, x, *, aux: bool = False, valid=None):
     """x: (B, S, d) → (B, S, d), aux_loss: the load-balance loss when
     ``aux``, else None (nothing on the serving path reads it).  Takes
-    :func:`_moe_shard_map` under the reference's conditions."""
+    :func:`_moe_shard_map` under the reference's conditions.  ``valid``:
+    (n, C(n)) for tokens padded at their tail (:func:`_group_dispatch`;
+    the single-device path only)."""
     cdt = getattr(torch, cfg.compute_dtype)
     B, S = x.shape[0], x.shape[1]
     info = moe_shard_info(B * S)
+    if info is not None and valid is not None:
+        raise NotImplementedError("a padded prompt through the "
+                                  "expert-parallel MoE")
     if info is not None:
         mesh, baxes, maxis = info
         sizes = axis_sizes(mesh)
@@ -279,7 +298,7 @@ def moe_forward(cfg, p: Params, x, *, aux: bool = False):
             btot *= sizes[a]
         if cfg.moe.n_experts % M == 0 and B % btot == 0 and S % M == 0:
             return _moe_shard_map(cfg, p, x, cdt, *info, aux=aux)
-    out, aux = _moe_local(cfg, p, x, cdt, aux)
+    out, aux = _moe_local(cfg, p, x, cdt, aux, valid)
     if "shared" in p:
         out = out + ffn_forward(cfg, p["shared"], x.to(cdt))
     return out, aux

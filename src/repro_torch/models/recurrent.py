@@ -63,10 +63,13 @@ def _block_diag(x, w):
                                     w))
 
 
-def _causal_conv(x, w, b, state=None):
+def _causal_conv(x, w, b, state=None, valid=None):
     """x: (B, S, dr); w: (W, dr) depthwise.  state: (B, W-1, dr) tail of
     previous tokens.  The W terms are summed in order, then ``b`` added,
-    as the reference sums them (bf16 rounds each partial sum)."""
+    as the reference sums them (bf16 rounds each partial sum).  The new
+    tail is the last W-1 input rows, or with ``valid`` (a (1,) int64
+    device tensor: x is padded past its first ``valid`` rows) the W-1
+    rows that end at row valid - 1."""
     W = w.shape[0]
     if state is not None:
         x_ext = torch.cat([state.to(x.dtype), x], dim=1)
@@ -77,22 +80,32 @@ def _causal_conv(x, w, b, state=None):
     for i in range(1, W):
         out = out + x_ext[:, i:i + S] * w[i]
     out = out + b
-    new_state = x_ext[:, -(W - 1):] if W > 1 else None
+    if W == 1:
+        new_state = None
+    elif valid is None:
+        new_state = x_ext[:, -(W - 1):]
+    else:
+        # x's row t is x_ext's row t + W - 1
+        new_state = x_ext.index_select(
+            1, valid + torch.arange(W - 1, device=x.device))
     return out, new_state
 
 
-def rglru_forward(cfg, p: Params, x, state=None):
+def rglru_forward(cfg, p: Params, x, state=None, valid=None):
     """Full Griffin recurrent block.  x: (B, S, d).
 
     state: dict(conv, h) of one layer, or None.  Returns (out (B, S, d),
-    new_state) with new_state's conv in the state's dtype and h in f32."""
+    new_state) with new_state's conv in the state's dtype and h in f32.
+    ``valid``: a prompt padded at its tail, its true length as a (1,)
+    int64 device tensor: the new state is taken at row valid - 1 (the
+    outputs before it do not depend on the pads)."""
     cdt = getattr(torch, cfg.compute_dtype)
     f32 = torch.float32
     gate = F.gelu(x @ p["w_gate"].to(cdt), approximate="tanh")
     xr = x @ p["w_x"].to(cdt)
     conv_state = state["conv"] if state is not None else None
     xr, new_conv = _causal_conv(xr, p["conv_w"].to(cdt),
-                                p["conv_b"].to(cdt), conv_state)
+                                p["conv_b"].to(cdt), conv_state, valid)
 
     r = torch.sigmoid(_block_diag(xr.to(f32), p["w_a"].to(f32)))
     i = torch.sigmoid(_block_diag(xr.to(f32), p["w_i"].to(f32)))
@@ -110,7 +123,8 @@ def rglru_forward(cfg, p: Params, x, state=None):
               torch.zeros(gated_x.shape[0], gated_x.shape[2], dtype=f32,
                           device=x.device))
         out_h = rglru_scan(gated_x, a, h0)
-        new_h = out_h[:, -1]
+        new_h = (out_h[:, -1] if valid is None
+                 else out_h.index_select(1, valid - 1)[:, 0])
 
     out = (out_h.to(cdt) * gate) @ p["w_out"].to(cdt)
     new_state = None

@@ -33,7 +33,10 @@ and can be captured in a CUDA graph and replayed
 (``repro_torch.serving.graphs``).  So does a prompt chunk given ``pos``
 (its first cache position), in the families :func:`takes_ladder` names:
 the ladder prefill's chunks, one graph per chunk size serving every
-offset.
+offset.  In the families :func:`takes_buckets` names, a prompt on fresh
+caches padded at its tail runs in one pass given its true length as a
+device tensor (``valid``) and, with MoE, that length's capacity: the
+bucketed prefill, one graph per padded length.
 """
 from __future__ import annotations
 
@@ -229,6 +232,17 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def set_length(caches: list, length: int) -> list:
+    """Set every sub-cache's host ``length`` to ``length``, IN PLACE (after
+    a prompt whose true length the device held: a captured prefill, a
+    padded one).  Returns them."""
+    for gc in caches:
+        for sub in gc.values():
+            if "length" in sub:
+                sub["length"] = length
+    return caches
+
+
 def reset_cache(cfg: ModelConfig, caches: list) -> list:
     """Set ``caches`` (from :func:`init_cache`) back to what
     :func:`init_cache` gives, IN PLACE: every tensor keeps its address,
@@ -269,14 +283,18 @@ def _layer(tree, layer: int):
 
 
 def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
-                   cache, steps, want_aux: bool):
+                   cache, steps, want_aux: bool, padded=None):
     """Pre-norm residual block: x + mixer(norm(x)); x + ffn(norm(x)).
     ``cache`` holds one layer's views of the stacked cache: attention
     writes its k/v rows into them, and a recurrent state is copied back.
-    Returns x and the MoE load-balance aux (None unless ``want_aux``)."""
+    ``padded``: (valid, capacity) of a prompt padded at its tail
+    (:func:`forward`), or None.  Returns x and the MoE load-balance aux
+    (None unless ``want_aux``)."""
+    valid = None if padded is None else padded[0]
     h = _projection_input(L.rms_norm(x, p["norm1"], cfg.norm_eps))
     if mixer in _RECURRENT:
-        h, state = _RECURRENT[mixer](cfg, p["mixer"], h, cache)
+        kw = {} if valid is None else {"valid": valid}
+        h, state = _RECURRENT[mixer](cfg, p["mixer"], h, cache, **kw)
         if cache is not None:
             for key, t in state.items():
                 cache[key].copy_(t)
@@ -286,7 +304,8 @@ def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
     else:
         step = None if cache is None else steps.get(cache["k"].shape[1])
         h, _ = L.attn_forward(cfg, p["mixer"], h, positions, cache,
-                              local=(mixer == "attn_local"), step=step)
+                              local=(mixer == "attn_local"), step=step,
+                              valid=valid)
     # branch outputs re-enter the residual layout
     x = x + _residual(h)
     aux = None
@@ -296,7 +315,8 @@ def _block_forward(cfg, mixer: str, ffn: str, p: Params, x, positions,
         x = x + _residual(h)
     elif ffn == "moe":
         h, aux = M.moe_forward(cfg, p["ffn"], _projection_input(
-            L.rms_norm(x, p["norm2"], cfg.norm_eps)), aux=want_aux)
+            L.rms_norm(x, p["norm2"], cfg.norm_eps)), aux=want_aux,
+            valid=padded)
         x = x + _residual(h)
     return x, aux
 
@@ -328,12 +348,14 @@ def _super_block(cfg, g: LayerGroup, lp: Params, x, positions,
 
 
 def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
-               steps, auxes: list | None, remat_policy: str = "none"):
+               steps, auxes: list | None, remat_policy: str = "none",
+               padded=None):
     """Loop over the group's super-blocks, each running the pattern's
     sub-layers in order (the reference's scan body), under
     ``remat_policy`` when there are no caches.  gcache: the group's cache
     dict or None; returns (x, new_gcache).  Each MoE aux is appended to
-    ``auxes`` when it is a list."""
+    ``auxes`` when it is a list.  ``padded``: as :func:`_block_forward`
+    takes it."""
     layers = _unstack(gp, g.count)
     if gcache is None and remat_policy != "none":
         context_fn = (functools.partial(create_selective_checkpoint_contexts,
@@ -356,7 +378,7 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
             c = None if gcache is None else _layer(gcache[key], layer)
             x, aux = _block_forward(cfg, mixer, g.ffn_of(i),
                                     layers[layer][key], x, positions, c,
-                                    steps, auxes is not None)
+                                    steps, auxes is not None, padded)
             x = _residual(x)
             if aux is not None:
                 auxes.append(aux)
@@ -409,6 +431,22 @@ def takes_ladder(cfg: ModelConfig) -> bool:
                for g in cfg.groups for i, m in enumerate(g.pattern))
 
 
+#: the mixers whose prompt runs padded at its tail, at offset 0, given
+#: its true length on the device (``forward(..., valid=)``): attention
+#: and MLA keep every real row exact under the causal mask (the pads come
+#: after them), a ring keeps the last real rows and RG-LRU its state at
+#: the last real row; an xLSTM state would carry on through the pads
+_BUCKET_MIXERS = frozenset({"attn", "attn_local", "mla", "rglru"})
+
+
+def takes_buckets(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s prompt can run padded at its tail to a fixed
+    length (``forward(..., valid=)``): every sub-layer's mixer is
+    attention (global or a ring), MLA or RG-LRU; any FFN (a MoE one keeps
+    the true length's capacity)."""
+    return all(m in _BUCKET_MIXERS for g in cfg.groups for m in g.pattern)
+
+
 def _prompt_steps(caches, rows, pos) -> dict:
     """A prompt chunk's cache rows per attention cache size W, for
     ``attn_forward``: (rows, None, pos), ``rows`` = pos + arange(S) on the
@@ -439,8 +477,8 @@ def _decode_steps(caches, pos, batch: int) -> dict:
 
 def forward(cfg: ModelConfig, params: Params, tokens=None, *,
             extra_embeds=None, caches=None, positions=None,
-            logits_slice: bool = False, pos=None, aux: bool = False,
-            remat_policy: str = "none"):
+            logits_slice: bool = False, pos=None, valid=None,
+            capacity=None, aux: bool = False, remat_policy: str = "none"):
     """Run the decoder.
 
     tokens: (B, S) int ids, or None for embeddings alone.  extra_embeds:
@@ -456,7 +494,15 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     it makes the chunk run at that device offset (:func:`takes_ladder`
     families only; the caller checks that pos + S fits the caches), reading
     no host length; without it a prompt starts at the host length.
-    aux: also return the MoE
+    valid: with fresh caches (length 0), batch 1 and S >= 2, the number
+    of real tokens as a (1,) int64 device tensor: the tokens are a prompt
+    of ``valid`` tokens padded at its tail (:func:`takes_buckets`
+    families only).  Every real row, the logits of the last real token
+    (``logits_slice``) and every cache row and state decode reads are
+    those of the prompt alone; the caches' host length becomes S, which
+    the caller sets to the true length (:func:`set_length`).  capacity:
+    then, with MoE, ``moe.capacity`` of the true length as a (1,) int64
+    device tensor.  aux: also return the MoE
     load-balance loss summed over layers, as the reference's third
     result.  remat_policy: ``"full"``, ``"dots"`` or ``"none"`` (module
     docstring); it acts only without caches.
@@ -477,7 +523,23 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     x = constrain(x, "residual")
     B, S, _ = x.shape
     steps = {}
-    if caches is not None and S == 1:
+    padded = None
+    if caches is not None and valid is not None:
+        if not takes_buckets(cfg):
+            raise NotImplementedError(
+                f"{cfg.arch_id}: a padded prompt needs attention, MLA or "
+                f"RG-LRU mixers (an xLSTM state carries on through pads)")
+        if B != 1 or S < 2 or _cache_length(caches) != 0 or pos is not None:
+            raise ValueError(f"a padded prompt runs at batch 1, S >= 2, on "
+                             f"fresh caches, at no device offset; got B {B}, "
+                             f"S {S}, cache length {_cache_length(caches)}")
+        if capacity is None and any(g.ffn_of(i) == "moe" for g in cfg.groups
+                                    for i in range(len(g.pattern))):
+            raise ValueError("a padded prompt through MoE needs the true "
+                             "length's capacity")
+        padded = (valid, capacity)
+        pos1d = torch.arange(S, device=x.device)[None]
+    elif caches is not None and S == 1:
         if pos is None:
             pos = torch.full((1,), _cache_length(caches), dtype=torch.long,
                              device=x.device)
@@ -504,12 +566,12 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     for gi, g in enumerate(cfg.groups):
         gcache = caches[gi] if caches is not None else None
         x, nc = _run_group(cfg, g, params["groups"][gi], x, positions,
-                           gcache, steps, auxes, remat_policy)
+                           gcache, steps, auxes, remat_policy, padded)
         if caches is not None:
             new_caches.append(nc)
     x = _projection_input(L.rms_norm(x, params["final_norm"], cfg.norm_eps))
     if logits_slice:
-        x = x[:, -1:]
+        x = x[:, -1:] if valid is None else x.index_select(1, valid - 1)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head.to(cdt)).float()
     if aux:
@@ -627,16 +689,20 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens, caches, *,
-            extra_embeds=None, positions=None, pos=None):
+            extra_embeds=None, positions=None, pos=None, valid=None,
+            capacity=None):
     """Prefill: run the prompt (after ``extra_embeds``, if given) through,
     filling caches; returns last-token logits + updated caches.  ``pos``:
     the first token's cache position as a (1,) int64 device tensor (a
     chunk of the ladder prefill, :func:`forward`); the eager twin of a
-    captured chunk (``serving.graphs.PrefillGraphs``)."""
+    captured chunk (``serving.graphs.PrefillGraphs``).  ``valid`` and
+    ``capacity``: a prompt padded at its tail (:func:`forward`); the
+    eager twin of a captured bucket
+    (``serving.graphs.BucketPrefillGraphs``)."""
     logits, new_caches = forward(cfg, params, tokens, caches=caches,
                                  extra_embeds=extra_embeds,
                                  positions=positions, logits_slice=True,
-                                 pos=pos)
+                                 pos=pos, valid=valid, capacity=capacity)
     return logits[:, 0], new_caches
 
 

@@ -42,10 +42,12 @@ timeline as the executor's spans.
 under an executor each tick runs on its bin's compute stream.  Each
 slot's decode step is a CUDA graph captured when the engine is built
 (:mod:`repro_torch.serving.graphs`, the counterpart of the reference's
-``jax.jit``) and replayed on the current stream.  So is prefill, as a
-ladder of graphed chunks at a device offset (``prefill_graphs``), for
-every family whose prompt can run so (``transformer.takes_ladder``:
-not a local-attention ring, MLA or MoE, which prefill eagerly).  On the
+``jax.jit``) and replayed on the current stream.  So is prefill
+(``prefill_graphs``): as a ladder of graphed chunks at a device offset
+for every family whose prompt can run so (``transformer.takes_ladder``),
+and for the others (a local-attention ring, MLA or MoE) as one graphed
+pass at offset 0 padded to a bucket (``transformer.takes_buckets``).  A
+failed capture raises: on the card nothing prefills eagerly.  On the
 CPU both stay eager.  The greedy token is read back with ``.item()``
 — one host sync per generated token.
 
@@ -94,7 +96,7 @@ from ..sched import (
     build_groups,
     get_scheduler,
 )
-from .graphs import DecodeGraphs, PrefillGraphs
+from .graphs import BucketPrefillGraphs, DecodeGraphs, PrefillGraphs
 from .kv_cache import PagedKVArena
 
 #: request lifecycle states (``Request.state``)
@@ -158,7 +160,8 @@ class ServingEngine:
     (default: the device of the embedding table).  Each slot's cache is
     allocated here and reset in place at admission; on CUDA each slot's
     decode step is captured here too (``decode_graphs``), and its prefill
-    ladder where the family takes one (``prefill_graphs``).
+    (``prefill_graphs``): a ladder where the family takes one, else its
+    buckets.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
@@ -220,13 +223,15 @@ class ServingEngine:
         self.decode_graphs = (
             DecodeGraphs(cfg, self.params, self._caches, self.device)
             if self.device.type == "cuda" else None)
-        #: the per-slot prefill ladders on CUDA for a family that takes
-        #: one; None on the CPU and for the others (eager prefill)
-        self.prefill_graphs = (
-            PrefillGraphs(cfg, self.params, self._caches, self.decode_graphs,
-                          max_seq, self.device)
-            if self.decode_graphs is not None
-            and transformer.takes_ladder(cfg) else None)
+        #: the per-slot prefill graphs on CUDA: the ladder for a family
+        #: that takes one, else the buckets; None on the CPU (eager)
+        self.prefill_graphs = None
+        if self.decode_graphs is not None:
+            kind = (PrefillGraphs if transformer.takes_ladder(cfg)
+                    else BucketPrefillGraphs)
+            self.prefill_graphs = kind(cfg, self.params, self._caches,
+                                       self.decode_graphs, max_seq,
+                                       self.device)
         self._obs = obs
         #: public registry — counters/histograms the engine publishes
         #: into; :meth:`stats` is a back-compat view over it

@@ -844,15 +844,21 @@ def test_engine_graphs_under_the_executor_match_eager_steps(cuda, arch):
     graphs = eng.decode_graphs
     assert len(graphs.slots) == 2 and graphs.replays == 4 * 5
     attn, moe = _kernel_layers(cfg)
-    # a ladder family's one-token chunks replay the decode graphs too
-    ladder = eng.prefill_graphs
-    assert (ladder is not None) == (arch in LADDER_ARCHS)
-    ones = 0 if ladder is None else ladder.decode_chunks
-    assert ladder is None or ladder.prefills == 4
+    # every prefill is graphed: a ladder family's (whose one-token chunks
+    # replay the decode graphs too) or the others' buckets (after one
+    # eager warm-up pass of each bucket)
+    from repro_torch.serving.graphs import BucketPrefillGraphs, PrefillGraphs
+    pre = eng.prefill_graphs
+    ladder = arch in LADDER_ARCHS
+    assert isinstance(pre, PrefillGraphs if ladder else BucketPrefillGraphs)
+    assert pre.prefills == 4
+    ones = pre.decode_chunks if ladder else 0
+    warm = 0 if ladder else pre.warmups
     steps = graphs.replays + graphs.warmup_steps + ones
     assert after["decode_attention"] - before["decode_attention"] \
         == attn * steps
-    assert after["moe_gating"] - before["moe_gating"] == moe * (steps + 4)
+    assert after["moe_gating"] - before["moe_gating"] \
+        == moe * (steps + 4 + warm)
 
 
 def test_a_capture_keeps_the_cyclic_gc_out(cuda):
@@ -998,6 +1004,144 @@ def _cache_tensors(tree):
 
 def test_ladder_refuses_a_prompt_past_the_caches(cuda, ladder):
     _, _, _, _, pre = ladder
+    with pytest.raises(ValueError, match="prompt of 49 tokens"):
+        pre.prefill(0, np.zeros(49, np.int64))
+
+
+# ---------------------------------------------------------------------------
+# the bucketed prefill: one graphed pass padded to a bucket at offset 0
+# ---------------------------------------------------------------------------
+#: the reduced families the buckets serve
+BUCKET_ARCHS = ["recurrentgemma-2b", "llama4-maverick-400b-a17b",
+                "deepseek-v2-236b"]
+#: two runs at f32 compute that should give the same logits (as
+#: chip_smoke.py holds the card against the CPU)
+LOGIT_ATOL = 1e-3
+#: prompts across the buckets 16, 32 and 48 of 48-row caches: shorter
+#: than, equal to and longer than the reduced 32-row ring
+BUCKET_PROMPTS = [1, 7, 16, 21, 32, 37, 48]
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "xlstm-1.3b",
+                                  "musicgen-large", "minicpm-2b"]
+                         + BUCKET_ARCHS)
+def test_the_engine_builds_buckets_for_exactly_ring_mla_and_moe(cuda, arch):
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.graphs import BucketPrefillGraphs, PrefillGraphs
+    cfg, p = _graph_rig(cuda, arch)
+    eng = ServingEngine(cfg, p, max_slots=1, max_seq=32, device=cuda)
+    want = BucketPrefillGraphs if arch in BUCKET_ARCHS else PrefillGraphs
+    assert type(eng.prefill_graphs) is want
+    if want is BucketPrefillGraphs:
+        assert eng.prefill_graphs.sizes == [16, 32]
+
+
+def _bucket_rig(cuda, arch, served: bool):
+    """A reduced family (at its served bf16 compute with bf16 caches, or
+    at f32 with f32 caches), one slot's caches of 48 rows, its decode
+    graph and its bucket graphs (16, 32, 48)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import cast_params, init_cache, init_params
+    from repro_torch.serving.graphs import BucketPrefillGraphs, DecodeGraphs
+    if served:
+        cfg, dtype = reduced(get_config(arch)), torch.bfloat16
+    else:
+        cfg, dtype = _reduced_f32(arch), torch.float32
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    p = _to(cast_params(cfg, params), cuda)
+    caches = init_cache(cfg, 1, 48, dtype=dtype, device=cuda)
+    dec = DecodeGraphs(cfg, p, [caches], cuda)
+    return cfg, p, [caches], dec, BucketPrefillGraphs(cfg, p, [caches], dec,
+                                                      48, cuda), dtype
+
+
+@pytest.fixture(scope="module", params=BUCKET_ARCHS)
+def buckets_served(request, cuda):
+    return _bucket_rig(cuda, request.param, served=True)
+
+
+@pytest.fixture(scope="module", params=BUCKET_ARCHS)
+def buckets_f32(request, cuda):
+    return _bucket_rig(cuda, request.param, served=False)
+
+
+def _prompt_on(cfg, L, cuda):
+    return torch.as_tensor(np.arange(3, 3 + L) * 7 % cfg.vocab_size,
+                           device=cuda)[None]
+
+
+@pytest.mark.parametrize("L", BUCKET_PROMPTS)
+def test_graphed_bucket_equals_the_eager_padded_prefill(cuda, buckets_served,
+                                                        L):
+    """A bucket replayed on a side stream (as the executor's compute
+    stream) gives the eager padded prefill of the same bucket
+    (``eager_bucket``) bit for bit at the served dtype, logits and every
+    cache; each replay adds its graph's launches: a flash launch per
+    attention layer, a scan per RG-LRU layer, a gating per MoE layer."""
+    from repro_torch.models import init_cache, reset_cache
+    from repro_torch.serving.graphs import eager_bucket
+    cfg, p, slot_caches, _, pre, dtype = buckets_served
+    attn, moe = _kernel_layers(cfg)
+    scans = sum(g.count * g.pattern.count("rglru") for g in cfg.groups)
+    per = {"flash_attention": attn, "decode_attention": 0,
+           "rglru_scan": scans, "moe_gating": moe}
+    for b, g in pre.slots[0].items():
+        assert g.launches == per, b
+    prompt = _prompt_on(cfg, L, cuda)
+    reset_cache(cfg, slot_caches[0])
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        before = _launch_counts()
+        glog = pre.prefill(0, prompt).clone()
+        after = _launch_counts()
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    assert {k: after[k] - before[k] for k in after} == per
+    eager = init_cache(cfg, 1, 48, dtype=dtype, device=cuda)
+    elog, eager = eager_bucket(cfg, p, prompt, eager, pre.bucket(L))
+    torch.testing.assert_close(glog, elog, rtol=0, atol=0)
+    for got, want in zip(_cache_tensors(slot_caches[0]),
+                         _cache_tensors(eager), strict=True):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert all(sub.get("length", L) == L for grp in slot_caches[0]
+               for sub in grp.values())
+
+
+@pytest.mark.parametrize("L", [7, 21, 37])
+def test_graphed_bucket_at_f32_matches_the_one_shot_prefill(cuda,
+                                                            buckets_f32, L):
+    """At f32 compute and f32 caches, the graphed bucket and 8 steps of
+    the slot's decode graph after it are within LOGIT_ATOL of the eager
+    one-shot prefill of the real tokens alone and its 8 eager steps, with
+    the same greedy tokens."""
+    from repro_torch.models import (decode_step, init_cache, prefill,
+                                    reset_cache)
+    cfg, p, slot_caches, dec, pre, dtype = buckets_f32
+    prompt = _prompt_on(cfg, L, cuda)
+    reset_cache(cfg, slot_caches[0])
+    logits = pre.prefill(0, prompt).clone()
+    gt, gl = [int(logits[0].argmax())], [logits]
+    for n in range(8):
+        logits = dec.step(0, gt[-1], L + n).clone()
+        gt.append(int(logits[0].argmax()))
+        gl.append(logits)
+    caches = init_cache(cfg, 1, 48, dtype=dtype, device=cuda)
+    logits, caches = prefill(cfg, p, prompt, caches)
+    et, el = [int(logits[0].argmax())], [logits]
+    for _ in range(8):
+        logits, caches = decode_step(cfg, p, torch.tensor([et[-1]],
+                                                          device=cuda),
+                                     caches)
+        et.append(int(logits[0].argmax()))
+        el.append(logits)
+    assert gt == et
+    torch.testing.assert_close(torch.cat(gl), torch.cat(el), rtol=0,
+                               atol=LOGIT_ATOL)
+
+
+def test_buckets_refuse_a_prompt_past_the_caches(cuda, buckets_served):
+    _, _, _, _, pre, _ = buckets_served
     with pytest.raises(ValueError, match="prompt of 49 tokens"):
         pre.prefill(0, np.zeros(49, np.int64))
 
