@@ -162,10 +162,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at most 1.05 of the median step (decode_attention = 32, flash = 80
    and flash_bwd = 40 in the real steps); the measured train step is
    the eager one, and the same step replayed from a ``TrainStepGraph``
-   is timed beside it against the same bound; the host time an eager decode
-   kernel call takes through its custom op and through its launch
-   function, in turns; then llama4-maverick x decode_32k traced on the
-   fake 16x16 mesh, its record line printed.
+   is timed beside it against the same bound; the same three checks for
+   xlstm-1.3b's prefill at full depth (48 blocks, B 1 x S 512) and its
+   8-block train step (phase 6's cut, B 1 x S 512, accum 1), which the
+   dry-run traces with each time loop as one op counting its steps
+   (``models/loop_op.py``) while ``FlopCounterMode`` counts the real
+   step's 512 sLSTM steps; the host time an eager decode kernel call
+   takes through its custom op and through its launch function, in
+   turns; and llama4-maverick x decode_32k and the three cells the port
+   traced last (xlstm-1.3b x prefill_32k and x train_4k, qwen2-vl-7b x
+   train_4k) traced on the fake 16x16 mesh by the dry-run's CLI, each in
+   a process of its own started before the checks above, their record
+   lines printed after them.
 
 9. the paper's applications, through the example twins in
    ``examples_torch/`` (each one's ``main`` with its flags) on ``cuda``:
@@ -227,7 +235,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2132,27 +2142,64 @@ def moe_ep_case(torch, dev, card: str, mesh) -> dict:
 #: is wrong: no step beats its bound)
 MEMORY_BAND = (0.95, 1.15)
 MAX_ROOFLINE_SHARE = 1.05
+#: the dry-run cells the port traced last (the reference traces all 32):
+#: xLSTM's time loops as ops counting their steps, qwen2-vl's loss over
+#: masked visual positions
+LAST_CELLS = [(XLSTM, "prefill_32k"), (XLSTM, "train_4k"),
+              (QWEN2VL, "train_4k")]
 
 
 def prediction_phase(torch, dev, card: str) -> dict:
     """Phase 8: the dry-run (``repro_torch.launch.dryrun``) against the
-    card.  (a) Two cells that fit one card, traced on a 1x1 fake mesh and
+    card.  (a) Four cells that fit one card, traced on a 1x1 fake mesh and
     run for real with the same step function: phi3-mini-3.8b's decode
     step at batch 4 against a 1024-row cache (bf16 weights, every row
-    valid) and minicpm-2b's train step at B 4 x S 1024 (accum 1, remat
-    full: phase 6's).  Fails unless the FLOPs equal ``FlopCounterMode``'s
-    count of the real step (which takes the kernels' custom ops by their
-    formulas), the predicted peak over ``max_memory_allocated`` lies in
+    valid), minicpm-2b's train step at B 4 x S 1024 (accum 1, remat
+    full: phase 6's), xlstm-1.3b's prefill at full depth (B 1 x S 512,
+    bf16 weights, f32 compute) and its train step cut to its first
+    super-block (8 of 48 blocks: phase 6's cut, B 1 x S 512, accum 1),
+    whose time loops the trace counts as one op each.  Fails unless the
+    FLOPs equal ``FlopCounterMode``'s count of the real step (which takes
+    the kernels' custom ops by their formulas; xLSTM's loops step by
+    step), the predicted peak over ``max_memory_allocated`` lies in
     MEMORY_BAND (the memory the process held before the cell, the
     cuBLAS workspaces among it, is added to the prediction and printed)
     and the bound over the measured median step is at most
     MAX_ROOFLINE_SHARE.  The measured step is the eager one (the function
     the dry-run traces); the train step replayed from a TrainStepGraph is
     timed after it and held to the same bound.  Then what the custom op
-    adds to an eager call (:func:`_dispatch_cost`).  (b) llama4-maverick x decode_32k on the
-    fake 16x16 mesh as the CLI traces it (MoE, GQA with kv heads replicated
-    over the model axis); its record line.  Returns the launch counts of
-    the real steps, by path."""
+    adds to an eager call (:func:`_dispatch_cost`).  (b) llama4-maverick x
+    decode_32k (MoE, GQA with kv heads replicated over the model axis)
+    and :data:`LAST_CELLS` on the fake 16x16 mesh as the CLI traces them,
+    each in a process of its own beside (a) (they need the host only);
+    their record lines.  Returns the launch counts of the real steps, by
+    path."""
+    # the 16x16 cells trace on the host alone: each in a process of its
+    # own, beside the checks on the card, read after them
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    t_full = time.perf_counter()
+    full = [_start_cell(arch, shape, out)
+            for arch, shape in [(LLAMA4, "decode_32k"), *LAST_CELLS]]
+    try:
+        launches = _card_cells(torch, dev, card)
+        _dispatch_cost(torch, dev, card)
+        for proc in full:
+            _read_cell(proc, card, out)
+    finally:
+        for proc in full:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"[{card}] llama4 decode_32k and {len(LAST_CELLS)} cells traced "
+          f"on the fake 16x16 mesh, each in its own process, all done "
+          f"{time.perf_counter() - t_full} s after they started")
+    return launches
+
+
+def _card_cells(torch, dev, card: str) -> dict:
+    """Phase 8 (a): each cell traced on a 1x1 fake mesh and run for real,
+    held to the FLOPs, MEMORY_BAND and MAX_ROOFLINE_SHARE; returns the
+    launch counts of the real steps, by path."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
@@ -2160,19 +2207,28 @@ def prediction_phase(torch, dev, card: str) -> dict:
     from repro_torch.launch import dryrun
 
     launches = {}
-    for arch, shape, ov, reps in [
-            (PHI3, ShapeConfig("decode_b4_c1024", 1024, 4, "decode"), None,
-             20),
-            (MINICPM, ShapeConfig("train_b4_s1024", 1024, 4, "train"),
-             {"accum": 1}, 3)]:
+    xlstm = get_config(XLSTM)
+    block = dataclasses.replace(xlstm, groups=(
+        dataclasses.replace(xlstm.groups[0], count=1),))
+    for arch, cfg, shape, ov, reps in [
+            (PHI3, get_config(PHI3),
+             ShapeConfig("decode_b4_c1024", 1024, 4, "decode"), None, 20),
+            (MINICPM, get_config(MINICPM),
+             ShapeConfig("train_b4_s1024", 1024, 4, "train"), {"accum": 1},
+             3),
+            (XLSTM, xlstm, ShapeConfig("prefill_b1_s512", 512, 1,
+                                       "prefill"), None, 3),
+            (f"{XLSTM} (8 of 48 blocks)", block,
+             ShapeConfig("train_b1_s512", 512, 1, "train"), {"accum": 1},
+             3)]:
         t0 = time.perf_counter()
-        rec = dryrun.run_cell(arch, shape, mesh_shape=(1, 1),
+        rec = dryrun.run_cell(cfg, shape, mesh_shape=(1, 1),
                               extra_overrides=ov)
         traced = time.perf_counter() - t0
         gc.collect()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated(dev)
-        fn, args = _real_cell(torch, dev, get_config(arch), shape, ov)
+        fn, args = _real_cell(torch, dev, cfg, shape, ov)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         _zero_counts()
@@ -2233,13 +2289,39 @@ def prediction_phase(torch, dev, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-    _dispatch_cost(torch, dev, card)
-    tag = f"{LLAMA4}__decode_32k__pod1"
-    rec = dryrun.run_cell(LLAMA4, "decode_32k")
-    print(f"[{card}] {dryrun.record_line(tag, rec)}")
+    return launches
+
+
+def _start_cell(arch: str, shape: str, out: str):
+    """The dry-run's CLI for one cell on the fake 16x16 mesh, started in a
+    process of its own that writes the record and its output under
+    ``out``."""
+    cell = f"{arch}__{shape}__pod1"
+    with open(Path(out) / f"{cell}.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], stdout=log,
+            stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    proc.cell = cell
+    return proc
+
+
+def _read_cell(proc, card: str, out: str) -> None:
+    """Waits for a :func:`_start_cell` process and prints its record line,
+    whether the cell fits, its memory and its collectives; raises if the
+    cell did not trace."""
+    proc.wait(timeout=600)
+    text = (Path(out) / f"{proc.cell}.log").read_text()
+    line = next((ln for ln in text.splitlines() if ln.startswith("OK ")),
+                None)
+    if proc.returncode or line is None:
+        raise AssertionError(f"dry-run of {proc.cell}: exit "
+                             f"{proc.returncode}\n{text[-6000:]}")
+    rec = json.loads((Path(out) / f"{proc.cell}.json").read_text())
+    print(f"[{card}] {line}")
     print(f"  fits {rec['fits']}, memory {rec['memory']}, collectives "
           f"{rec['collectives']['counts']}")
-    return launches
 
 
 def _graphed_median(torch, fn, args, reps: int) -> tuple[float, float]:

@@ -18,7 +18,9 @@ stand-in: the dispatch conditions read sizes only).
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
+import sys
 import threading
 
 import torch
@@ -59,6 +61,39 @@ def use_sharding_rules(*, batch_axes=("pod", "data"), model_axis="model",
         yield
     finally:
         _state.rules = prev
+
+
+def carry_rules(fn):
+    """``fn`` to be run under the rules in force where this is called (and
+    DTensor's implicit replication, if it is on here), in whichever thread
+    runs it.  Both are per thread, and a block that checkpointing
+    recomputes in the backward runs on the autograd engine's thread for
+    its device (CUDA's), which has neither."""
+    rules, manual = _active(), getattr(_state, "manual", False)
+    implicit = _implicit_replication()
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        prev = _active(), getattr(_state, "manual", False)
+        _state.rules, _state.manual = rules, manual
+        try:
+            if implicit and not _implicit_replication():
+                from torch.distributed.tensor.experimental import \
+                    implicit_replication
+                with implicit_replication():
+                    return fn(*args, **kwargs)
+            return fn(*args, **kwargs)
+        finally:
+            _state.rules, _state.manual = prev
+    return run
+
+
+def _implicit_replication() -> bool:
+    """Whether DTensor treats plain tensors as replicated in this thread
+    (False where ``torch.distributed.tensor`` is not imported)."""
+    tensor = sys.modules.get("torch.distributed.tensor")
+    return bool(tensor is not None
+                and tensor.DTensor._op_dispatcher._allow_implicit_replication)
 
 
 @contextlib.contextmanager

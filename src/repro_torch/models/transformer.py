@@ -49,7 +49,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs.base import LayerGroup, ModelConfig
-from ..distributed.context import constrain, decode_tp_active
+from ..core.streams import is_dtensor
+from ..distributed.context import carry_rules, constrain, decode_tp_active
 from . import layers as L
 from . import moe as M
 from . import recurrent as R
@@ -365,7 +366,7 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
         for lp in layers:
             # the step draws no random number: no RNG state to keep, and
             # none is read inside a CUDA-graph capture
-            x, aux = checkpoint(_super_block, cfg, g, lp, x,
+            x, aux = checkpoint(carry_rules(_super_block), cfg, g, lp, x,
                                 positions, auxes is not None,
                                 use_reentrant=False, preserve_rng_state=False,
                                 **kw)
@@ -390,6 +391,17 @@ def _run_group(cfg, g: LayerGroup, gp: Params, x, positions, gcache,
         if "length" in c:
             new_cache[key]["length"] = c["length"] + x.shape[1]
     return x, new_cache
+
+
+def _embed(table, tokens):
+    """The rows of ``table`` at ``tokens``: an index (the reference's
+    ``embed[tokens]``), but for a DTensor table that takes a gradient:
+    that one is gathered whole and read with ``F.embedding``, whose
+    backward DTensor lays out as partial sums of the table (torch 2.11
+    cannot lay out the index's backward, an accumulating ``index_put``)."""
+    if is_dtensor(table) and table.requires_grad:
+        return F.embedding(tokens, constrain(table, "replicated"))
+    return table[tokens]
 
 
 def _residual(x):
@@ -517,7 +529,7 @@ def forward(cfg: ModelConfig, params: Params, tokens=None, *,
     if extra_embeds is not None:
         parts.append(extra_embeds.to(cdt))
     if tokens is not None:
-        parts.append(params["embed"][tokens].to(cdt))
+        parts.append(_embed(params["embed"], tokens).to(cdt))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     # the embedding output enters the residual layout at once
     x = constrain(x, "residual")
@@ -635,7 +647,7 @@ def _stage_forward(cfg: ModelConfig, groups: tuple, first: bool, last: bool,
     residual stream in, the residual stream or logits out."""
     cdt = getattr(torch, cfg.compute_dtype)
     if first:
-        x = constrain(p["embed"][x].to(cdt), "residual")
+        x = constrain(_embed(p["embed"], x).to(cdt), "residual")
     B, S = x.shape[0], x.shape[1]
     pos1d = torch.arange(S, device=x.device)[None].expand(B, S)
     positions = pos1d.expand(3, B, S) if cfg.m_rope_sections else pos1d
@@ -663,8 +675,11 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
             remat_policy: str = "full"):
     """Next-token cross entropy (+ MoE aux), as the reference's
     ``loss_fn``.  batch: tokens (B, S), labels (B, S) with negative =
-    masked (-100), optional extra_embeds (B, P, d) whose P positions are
-    sliced off the logits.  Returns (loss + aux, {"loss", "aux_loss",
+    masked (-100), optional extra_embeds (B, P, d) whose P positions take
+    P masked labels in front: the head runs over all P + S positions, as
+    the reference's, and no slice of the logits is taken (DTensor cannot
+    lay out a slice of logits sharded over the batch and the vocabulary
+    for the log-softmax).  Returns (loss + aux, {"loss", "aux_loss",
     "tokens"})."""
     extra = batch.get("extra_embeds")
     logits, _, aux = forward(cfg, params, batch["tokens"],
@@ -672,7 +687,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
                              aux=True)
     labels = batch["labels"]
     if extra is not None:
-        logits = logits[:, extra.shape[1]:]
+        labels = torch.cat([labels.new_full((labels.shape[0], extra.shape[1]),
+                                            -100), labels], dim=1)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
     logp = F.log_softmax(logits, dim=-1)

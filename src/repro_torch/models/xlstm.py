@@ -11,9 +11,17 @@ contraction, inter-chunk recurrent state) and one decode token the O(1)
 step form, as the reference (``repro.models.xlstm``).  sLSTM keeps the
 recurrent hidden-to-hidden matrix R, so it is a loop over time of the
 reference's scan step.  The reference has no Pallas kernel here: plain
-PyTorch is the port.  Its sharding constraints have no meaning on one
-device and are dropped.  Weights stack over a leading ``count`` axis as
+PyTorch is the port.  Weights stack over a leading ``count`` axis as
 everywhere in the port; the functions take one layer's slice.
+
+The reference's sharding hints are kept (``constrain``, the identity on a
+plain tensor): the recurrences run batch-local, q, k, v, the gates, the
+carries and sLSTM's pre-activations sharded over the batch only (H = 4
+heads do not map onto a 16-way model axis, and a model-axis shard of a
+carry would cost a collective per step).  Each time loop (the sLSTM's
+steps, the mLSTM's chunks) is a :class:`~.loop_op.LoopOp`: a real tensor
+runs the loop, a traced one (the dry-run) one custom op that counts its
+steps, the counterpart of the reference's ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -23,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.streams import is_dtensor
-from ..distributed.context import merge_heads, split_heads
+from ..distributed.context import constrain, merge_heads, split_heads
 from .layers import dense_init
+from .loop_op import LoopOp
 
 Params = dict
 f32 = torch.float32
@@ -117,6 +126,46 @@ def _mlstm_chunk(q, k, v, log_i, log_f, C0, n0, m0):
     return h, (C, n, m_end)
 
 
+def _zero_state(q):
+    """The mLSTM's start for q (B, H, S, dh): C and n zero, m = −inf; on a
+    DTensor q, laid out as q's batch (each rank makes its own rows)."""
+    if is_dtensor(q):
+        from torch.distributed.tensor import DTensor
+        return tuple(DTensor.from_local(t, q.device_mesh, q.placements,
+                                        run_check=False)
+                     for t in _zero_state(q.to_local()))
+    B, H, _, dh = q.shape
+    return (torch.zeros((B, H, dh, dh), dtype=f32, device=q.device),
+            torch.zeros((B, H, dh), dtype=f32, device=q.device),
+            torch.full((B, H), -math.inf, dtype=f32, device=q.device))
+
+
+def mlstm_chunks(q, k, v, log_i, log_f, C0, n0, m0, L: int,
+                 steps: int | None = None):
+    """The prompt as chunks of L tokens (:func:`_mlstm_chunk`) from the
+    carries C0, n0, m0; the first ``steps`` chunks (default: all).
+    Returns h (B, H, steps·L, dh) and the last carries."""
+    C, n, m = C0, n0, m0
+    hs = []
+    for c0 in range(0, q.shape[2] if steps is None else steps * L, L):
+        sl = slice(c0, c0 + L)
+        h, (C, n, m) = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                    log_i[..., sl], log_f[..., sl], C, n, m)
+        hs.append(h)
+    return torch.cat(hs, dim=2), C, n, m
+
+
+#: the mLSTM's chunk loop as one operation where it is traced: batch rows
+#: (the reference's ``lax.scan`` over chunks)
+mlstm_scan = LoopOp(
+    "mlstm_scan", mlstm_chunks,
+    ("q", "k", "v", "log_i", "log_f", "C0", "n0", "m0"), 4,
+    lambda q, k, v, log_i, log_f, C0, n0, m0, L: [
+        (tuple(q.shape), torch.promote_types(q.dtype, C0.dtype)),
+        *((tuple(t.shape), t.dtype) for t in (C0, n0, m0))],
+    lambda q, *rest: q.shape[2] // rest[-1], statics=("L",))
+
+
 def mlstm_forward(cfg, p: Params, x, state=None, chunk: int = 1024):
     """x: (B, S, d) → (B, S, d), new state.  state: dict(C, n, m) of one
     layer, or None.  A prompt runs chunks of min(``chunk``, S) tokens (S
@@ -132,21 +181,31 @@ def mlstm_forward(cfg, p: Params, x, state=None, chunk: int = 1024):
     def heads(w):
         """Block-diagonal projection of xb, split into (B, H, S, dh)."""
         nb, dq, _ = w.shape
+        # w whole (its rows are sharded over the batch's axis, which the
+        # product would otherwise take for them); its gradient is reduced
+        # back to that layout once
         y = torch.einsum("bsnd,nde->bsne", split_heads(xb, nb, dq),
-                         w.to(cdt))
+                         constrain(w.to(cdt), "replicated"))
         return split_heads(merge_heads(y), H, dh).transpose(1, 2)
 
-    q, k, v = heads(p["w_q"]), heads(p["w_k"]), heads(p["w_v"])
+    # H = 4 heads cannot map onto a 16-way model axis: the chunk
+    # recurrence runs shard-local, the batch sharded only
+    q, k, v = (constrain(heads(w), "batch_only")
+               for w in (p["w_q"], p["w_k"], p["w_v"]))
     xf = xb.to(f32)
     log_i = (xf @ p["w_i"].to(f32) + p["b_i"]).transpose(1, 2)   # (B,H,S)
     log_f = _log_sigmoid(xf @ p["w_f"].to(f32) + p["b_f"]).transpose(1, 2)
+    # and so do the gates (XLA lays them out to match; DTensor must be told)
+    log_i, log_f = constrain(log_i, "batch_only"), constrain(log_f,
+                                                             "batch_only")
 
     if state is None:
-        C0 = torch.zeros((B, H, dh, dh), dtype=f32, device=x.device)
-        n0 = torch.zeros((B, H, dh), dtype=f32, device=x.device)
-        m0 = torch.full((B, H), -math.inf, dtype=f32, device=x.device)
+        C0, n0, m0 = _zero_state(q)
     else:
         C0, n0, m0 = state["C"], state["n"], state["m"]
+    # the matrix-memory carries stay batch-local like q, k, v: a model-axis
+    # shard of dh would reduce the whole C per chunk
+    C0, n0, m0 = (constrain(t, "batch_only") for t in (C0, n0, m0))
 
     if S == 1:
         # decode: O(1) recurrent update
@@ -169,15 +228,7 @@ def mlstm_forward(cfg, p: Params, x, state=None, chunk: int = 1024):
         if S % L:
             raise ValueError(f"mlstm_forward: seq {S} is not a multiple of "
                              f"the chunk {L}")
-        hs = []
-        C, n, m = C0, n0, m0
-        for c0 in range(0, S, L):
-            sl = slice(c0, c0 + L)
-            h, (C, n, m) = _mlstm_chunk(q[:, :, sl], k[:, :, sl],
-                                        v[:, :, sl], log_i[..., sl],
-                                        log_f[..., sl], C, n, m)
-            hs.append(h)
-        h = torch.cat(hs, dim=2)
+        h, C, n, m = mlstm_scan(q, k, v, log_i, log_f, C0, n0, m0, L)
         new_state = {"C": C, "n": n, "m": m}
 
     h = merge_heads(h.transpose(1, 2)) * o
@@ -220,15 +271,16 @@ def init_slstm_block(cfg, gen: torch.Generator, device,
 
 
 def slstm_forward(cfg, p: Params, x, state=None):
-    """sLSTM with exponential gating and stabilizer, sequential over time,
-    then the block's gated FFN tail.
+    """sLSTM with exponential gating and stabilizer, sequential over time
+    (:func:`slstm_scan`), then the block's gated FFN tail.
 
     x: (B, S, d); state: dict(h, c, n, m), each (B, d) f32, or None."""
     cdt = getattr(torch, cfg.compute_dtype)
     B, S, d = x.shape
-    H = cfg.n_heads
-    dh = d // H
     pre = (x @ p["w_in"].to(cdt)).to(f32)                  # (B,S,4d)
+    # the time loop is sequential: every per-step operand stays batch-local,
+    # or each step would issue a collective
+    pre = constrain(pre, "batch_only")
     if state is None:
         h = torch.zeros((B, d), dtype=f32, device=x.device)
         c = torch.zeros((B, d), dtype=f32, device=x.device)
@@ -236,10 +288,29 @@ def slstm_forward(cfg, p: Params, x, state=None):
         m = torch.zeros((B, d), dtype=f32, device=x.device)
     else:
         h, c, n, m = state["h"], state["c"], state["n"], state["m"]
-    r = p["r"].to(f32)
-    b = p["b"]
+    h, c, n, m = (constrain(t, "batch_only") for t in (h, c, n, m))
+    # r's layout is left free, as the reference leaves it: a replication
+    # constraint would put r's gradient reduction inside the time loop
+    y, h, c, n, m = slstm_scan(pre, p["r"].to(f32), p["b"], h, c, n, m)
+    y = y.to(cdt)                                           # (B,S,d)
+    # gated FFN tail (xLSTM block post-projection)
+    a, g = torch.chunk(y @ p["w_up"].to(cdt), 2, dim=-1)
+    y = (a * F.gelu(g, approximate="tanh")) @ p["w_down"].to(cdt)
+    new_state = None
+    if state is not None:
+        new_state = {"h": h, "c": c, "n": n, "m": m}
+    return y, new_state
+
+
+def slstm_loop(pre, r, b, h, c, n, m, steps: int | None = None):
+    """The sLSTM recurrence, one step after another: pre (B, S, 4d) f32
+    pre-activations, r (H, dh, 4dh) the per-head recurrent matrix, b (4d)
+    the bias, h, c, n, m (B, d) the carries.  Runs the first ``steps``
+    steps (default: all S).  Returns (y, h, c, n, m): y (B, steps, d) the
+    stacked h, and the last carries."""
+    H, dh = r.shape[0], r.shape[1]
     hs = []
-    for t in range(S):
+    for t in range(pre.shape[1] if steps is None else steps):
         rec = merge_heads(torch.einsum("bhd,hde->bhe",
                                        split_heads(h, H, dh), r))
         z, i, f, o = torch.chunk(pre[:, t] + rec + b, 4, dim=-1)
@@ -254,14 +325,17 @@ def slstm_forward(cfg, p: Params, x, state=None):
         h = o * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).to(cdt)                      # (B,S,d)
-    # gated FFN tail (xLSTM block post-projection)
-    a, g = torch.chunk(y @ p["w_up"].to(cdt), 2, dim=-1)
-    y = (a * F.gelu(g, approximate="tanh")) @ p["w_down"].to(cdt)
-    new_state = None
-    if state is not None:
-        new_state = {"h": h, "c": c, "n": n, "m": m}
-    return y, new_state
+    return torch.stack(hs, dim=1), h, c, n, m
+
+
+#: the sLSTM time loop as one operation where it is traced: batch rows,
+#: r and b whole (the reference's ``lax.scan`` over time)
+slstm_scan = LoopOp(
+    "slstm_scan", slstm_loop, ("pre", "r", "b", "h0", "c0", "n0", "m0"), 5,
+    lambda pre, r, b, h0, c0, n0, m0: [
+        ((*pre.shape[:2], h0.shape[1]), pre.dtype),
+        *((tuple(t.shape), t.dtype) for t in (h0, c0, n0, m0))],
+    lambda pre, *_: pre.shape[1], whole=("r", "b"))
 
 
 def init_slstm_state(cfg, batch: int, device, count: int = 1) -> Params:

@@ -1667,11 +1667,14 @@ def test_custom_op_launch_equals_the_direct_launch(cuda, kernel):
 
 
 @pytest.mark.parametrize("arch,kind", [("minicpm-2b", "train"),
-                                       ("phi3-mini-3.8b", "decode")])
+                                       ("phi3-mini-3.8b", "decode"),
+                                       ("xlstm-1.3b", "train")])
 def test_flop_counter_on_a_real_step_equals_the_dry_run(cuda, arch, kind):
     """``FlopCounterMode`` over a reduced step run on the card counts
     what the dry-run counts tracing the same step on fake tensors over a
-    1x1 fake mesh (the kernels by their formulas in both)."""
+    1x1 fake mesh (the kernels by their formulas in both; xLSTM's time
+    loops step by step on the card, as one op counting its steps in the
+    trace)."""
     import dataclasses
 
     from torch.utils.flop_counter import FlopCounterMode
