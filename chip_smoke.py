@@ -27,7 +27,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the same inputs for the attention kernels (a yardstick only: the port
    never calls it; where Dv != D, the first backend that takes it, named
    in the output; no single PyTorch call computes the scan or the
-   routing) and the bound;
+   routing) and the bound (an f32 flash product at 495/3 TFLOP/s: three
+   TF32 products each, ``PEAK_FLOPS["tf32x3"]``); the f32 flash route's
+   TF32 rounding against ``cvt.rna.tf32.f32`` over every f32 bit
+   pattern, and the kernels SDPA runs at the f32 cases (profiler);
 4. small-input reference: reduced phi3-mini, recurrentgemma, llama4,
    xLSTM (the reference's canary stack of one mLSTM and one sLSTM block,
    twice), deepseek-v2, qwen2-vl and musicgen served on the card and on
@@ -208,7 +211,8 @@ Each kernel's bound in phase 3 comes from its cost formula in the port
 (``*_cost`` beside the wrapper, the custom op's FLOP and byte count).
 Phase 3 also holds the forward's log-sum-exp output and the two
 backward kernels (``flash_attention_bwd`` at the three train shapes in
-bf16, on the tensor cores, and a small f32 one, with SDPA's backward as
+bf16, on the tensor cores, and in f32 at a small shape, minicpm-2b's and
+deepseek-v2's MLA at S 2048, with SDPA's backward as
 the yardstick and its backend named, each pass's device time and the
 launch shape, and the tensor-core kernels' registers and spills from
 the build; ``rglru_scan_bwd`` at recurrentgemma's train shape in f32
@@ -223,6 +227,12 @@ state),
 drives reduced phi3-mini's loss down by 0.5 in 12 steps on one repeated
 batch, and round-trips a reduced train state through ``async_save`` and
 ``restore`` bit for bit.
+
+The flash kernels' f32 route is counted apart (``F32_PATHS``): every
+flash launch of the f32 paths (phase 4's reduced models served and
+trained at f32, phase 5's f32 ladders, buckets and chunked prefills)
+must go through it, and its rows in the kernels line
+(``flash_attention_f32``, ``flash_attention_bwd_f32``) count those.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -249,9 +259,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
+#: published H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s.
+#: An f32 attention kernel (flash forward and backward) takes each product
+#: as three TF32 products on the tensor cores, so the least time f32-accurate
+#: work can take there is three times the work at 495 TFLOP/s (TF32):
+#: "tf32x3".  The other f32 kernels are bound by bytes and keep the CUDA
+#: cores' 67.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 #: each kernel is held against its plain version on f32 copies of the same
 #: inputs, element by element: |out - ref| <= 2e-5 + rtol·|ref|.  2e-5 is
 #: the f32 sums taken in another order (as the JAX package's kernel
@@ -308,11 +323,16 @@ def _check(torch, name, out, ref32, dtype_name) -> float:
     return max_err
 
 
+def _attention_peak(dt: str) -> str:
+    """The ``PEAK_FLOPS`` key of a flash kernel's products in ``dt``."""
+    return "tf32x3" if dt == "float32" else dt
+
+
 def _bounds(flops: float, nbytes: float, dt: str) -> tuple[float, str]:
     """The least time for the work, in ms, and what bounds it: ``flops``
     and ``nbytes`` as a kernel's cost formula gives them (its ops.py
     ``*_cost``, the custom op's count for ``FlopCounterMode`` and the
-    dry-run)."""
+    dry-run), ``dt`` a key of ``PEAK_FLOPS``."""
     bounds = {"operations": flops / PEAK_FLOPS[dt] * 1e3,
               "bytes": nbytes / HBM_BYTES_S * 1e3}
     bound_by = max(bounds, key=bounds.get)
@@ -331,6 +351,7 @@ def kernel_phase(torch, dev, logs: dict) -> dict:
 
     print("kernel cases (name, shape, dtype, max_abs_err, atol, rtol, ms, "
           "plain_ms, library_ms, bound_ms, bound_by):")
+    _zero_counts()
     chosen = {}
     chosen.update(_flash_cases(torch, dev, randn, flush))
     _flash_offset_cases(torch, dev, randn, flush)
@@ -341,6 +362,8 @@ def kernel_phase(torch, dev, logs: dict) -> dict:
     chosen.update(_flash_bwd_cases(torch, dev, randn, flush,
                                    logs.get("flash_attention_bwd")))
     chosen.update(_rglru_bwd_cases(torch, dev, randn, flush))
+    print(f"phase 3's launches of the flash kernels' f32 route (checks and "
+          f"timing, not a path): {_read_f32_counts()}")
     return chosen
 
 
@@ -351,6 +374,9 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention_cost
 
     chosen = {}
+    print(f"  the f32 route's TF32 rounding against cvt.rna.tf32.f32 over "
+          f"all 2^32 f32 bit patterns: {_tf32_mismatches(torch, dev)} "
+          f"finite ones apart")
     # phi3-mini (D 96), GQA at G 4 (D 128), llama4's prefill (H 40, K 8,
     # G 5, D 128), recurrentgemma (MQA, D 256, window 2048), deepseek-v2's
     # MLA (q/k 192, v 128), qwen2-vl (H 28, K 4, G 7) and musicgen (D 64)
@@ -400,8 +426,9 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
                     enable_gqa=H != K)
         lib, backend = _sdpa_ms(torch, sdpa, flush, pinned=Dv != D)
         bound, bound_by = _bounds(*flash_attention_cost(q, k, v, win or 0),
-                                  dt)
-        row = {"name": "flash_attention", "route": "cuda",
+                                  _attention_peak(dt))
+        row = {"name": "flash_attention" + ("_f32" if dt == "float32"
+                                            else ""), "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention/kernel.py:106",
                "max_abs_err": err,
@@ -413,9 +440,47 @@ def _flash_cases(torch, dev, randn, flush) -> dict:
         print(f"  flash_attention B={B} H={H} K={K} S={S} D={D} Dv={Dv} "
               f"window={win} {dt}: {err} {ATOL} {RTOL[dt]} {row['ms']} "
               f"{row['plain_ms']} {lib} ({backend}) {bound} {bound_by}")
-        if (S, K, D, dt) == (512, 32, 96, "bfloat16"):
-            chosen["flash_attention"] = row
+        if (S, K, D) == (512, 32, 96) and dt in ("bfloat16", "float32"):
+            chosen[row["name"]] = row
+            if dt == "float32":
+                print(f"  SDPA's kernels at this f32 case (profiler): "
+                      f"{_kernel_names(torch, sdpa)}")
     return chosen
+
+
+def _tf32_mismatches(torch, dev) -> int:
+    """The finite f32 values the flash kernels' f32 route rounds to TF32
+    otherwise than ``cvt.rna.tf32.f32`` (``csrc/flash_attention.cu``
+    ``flash_attention_tf32_mismatches``); raises unless none."""
+    import ctypes
+
+    from repro_torch.kernels._build import function
+
+    fn = function("flash_attention", "flash_attention_tf32_mismatches",
+                  [ctypes.c_void_p, ctypes.c_void_p])
+    n = torch.zeros(1, dtype=torch.int64, device=dev)
+    if fn(n.data_ptr(), torch.cuda.current_stream(dev).cuda_stream):
+        raise RuntimeError("the TF32 rounding check did not launch")
+    torch.cuda.synchronize(dev)
+    if int(n):
+        raise AssertionError(f"the f32 route rounds {int(n)} finite values "
+                             f"otherwise than cvt.rna.tf32.f32")
+    return int(n)
+
+
+def _kernel_names(torch, fn) -> list:
+    """The CUDA kernels one call of ``fn`` runs, by name, from a
+    ``torch.profiler`` trace (which kernel SDPA picks for f32)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type.name == "CUDA" and "memset" not in
+                   e.name.lower() and "memcpy" not in e.name.lower()})
 
 
 def _flash_offset_cases(torch, dev, randn, flush) -> None:
@@ -455,7 +520,7 @@ def _flash_offset_cases(torch, dev, randn, flush) -> None:
                 qt, kt, vt, attn_mask=bias, scale=scale),
             flush, pinned=Dv != D)
         bound, bound_by = _bounds(
-            *flash_attention_cost(q, k, v, q_offset=off), dt)
+            *flash_attention_cost(q, k, v, q_offset=off), _attention_peak(dt))
         ms = _median_ms(torch, lambda: flash_attention(
             q, k, v, scale=scale, q_offset=off), flush)
         plain = _median_ms(torch, lambda: flash_attention_plain(
@@ -739,7 +804,9 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
             ("deepseek-v2", 1, 128, 128, 2048, 192, 128, None, "bfloat16"),
             ("train_lm twin --full", 8, 12, 12, 128, 64, 64, None,
              "bfloat16"),
-            ("small", 1, 8, 2, 512, 64, 64, None, "float32")]:
+            ("small", 1, 8, 2, 512, 64, 64, None, "float32"),
+            ("minicpm-2b", 4, 36, 36, 1024, 64, 64, None, "float32"),
+            ("deepseek-v2", 1, 128, 128, 2048, 192, 128, None, "float32")]:
         dtype = getattr(torch, dt)
         q, k = (randn((B, S, n, D), dtype) for n in (H, K))
         v = randn((B, S, K, Dv), dtype)
@@ -761,10 +828,12 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
         err = max(_check(torch, f"flash_attention_bwd d{n}", g, w, dt)
                   for n, g, w in zip("qkv", got, want))
         del got, want
-        lib, backend = _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush)
+        lib, backend, sdpa_bwd = _sdpa_bwd_ms(torch, q, k, v, dout, win,
+                                              scale, flush)
         bound, bound_by = _bounds(*flash_attention_bwd_cost(
-            q, k, v, out, dout, lse, win or 0), dt)
-        row = {"name": "flash_attention_bwd", "route": "cuda",
+            q, k, v, out, dout, lse, win or 0), _attention_peak(dt))
+        row = {"name": "flash_attention_bwd" + ("_f32" if dt == "float32"
+                                                else ""), "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                "replaces": "src/repro/models/layers.py:194",
                "max_abs_err": err,
@@ -783,7 +852,11 @@ def _flash_bwd_cases(torch, dev, randn, flush, log) -> dict:
         print(f"  flash_attention_bwd {name} passes (device ms a call): "
               f"{passes}; {bwd_launch_shape(D, Dv, dtype)}")
         if name == "minicpm-2b":
-            chosen["flash_attention_bwd"] = row
+            chosen[row["name"]] = row
+        if (name, dt) == ("small", "float32"):
+            print(f"  SDPA's backward kernels at this f32 case (profiler): "
+                  f"{_kernel_names(torch, sdpa_bwd)}")
+        del sdpa_bwd
     return chosen
 
 
@@ -812,8 +885,9 @@ def _ptxas_report(log, kernels) -> str:
 
 def _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush):
     """SDPA's backward on (B, H, S, D) copies of the inputs (kv heads
-    repeated to H), timed alone from a retained graph, and the first of
-    ``SDPA_BACKENDS`` that takes the case (a window needs a mask)."""
+    repeated to H), timed alone from a retained graph, the first of
+    ``SDPA_BACKENDS`` that takes the case (a window needs a mask), and a
+    call that runs that backward once."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -839,9 +913,10 @@ def _sdpa_bwd_ms(torch, q, k, v, dout, win, scale, flush):
                                         retain_graph=True)
             except RuntimeError:
                 continue
-            ms = _median_ms(torch, lambda: torch.autograd.grad(
-                out, (qt, kt, vt), dt, retain_graph=True), flush)
-            return ms, name
+            def once():
+                return torch.autograd.grad(out, (qt, kt, vt), dt,
+                                           retain_graph=True)
+            return _median_ms(torch, once, flush), name, once
     raise AssertionError("no SDPA backend takes the backward case")
 
 
@@ -919,6 +994,7 @@ def reference_phase(torch, dev) -> None:
 
     cpu = torch.device("cpu")
     canary = (LayerGroup(pattern=("mlstm", "slstm"), count=2, ffn="none"),)
+    _zero_counts()
     for arch in (PHI3, RG, LLAMA4, XLSTM, DSV2, QWEN2VL, MUSICGEN):
         kw = {"groups": canary} if arch == XLSTM else {}
         cfg = dataclasses.replace(reduced(get_config(arch)),
@@ -984,6 +1060,7 @@ def reference_phase(torch, dev) -> None:
                                  f"differs from the CPU's prefill")
         if arch == QWEN2VL:
             _patch_prefill(torch, cfg, params, prompt, dev)
+    _record_f32("reduced models served at f32 (phase 4)", True)
 
 
 #: training on the card against the CPU (phase 4): per-step losses and
@@ -1068,6 +1145,7 @@ def train_reference_phase(torch, dev) -> None:
                     for x, y in pairs),
                 max(float((x - y).abs().max()) for x, y in pairs))
 
+    _zero_counts()
     for arch in (MINICPM, RG, LLAMA4, DSV2, XLSTM, QWEN2VL):
         kw = {"groups": canary} if arch == XLSTM else {}
         cfg = dataclasses.replace(reduced(get_config(arch)),
@@ -1117,6 +1195,7 @@ def train_reference_phase(torch, dev) -> None:
         if not loss_ok or max(excess) > 0 or max(gexcess, default=0) > 0:
             raise AssertionError(f"{arch}: training on the card differs "
                                  f"from the CPU")
+    _record_f32("reduced models trained at f32 (phase 4)", True, True)
 
     cfg = reduced(get_config(PHI3))
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1527,6 +1606,7 @@ def ladder_f32_phase(torch, dev, cfg, params, max_seq: int,
     p32 = cast_params(c32, params)
     prompt = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, length)), device=dev)
+    _zero_counts()
     caches = init_cache(c32, 1, max_seq, dtype=torch.float32, device=dev)
     dec = DecodeGraphs(c32, p32, [caches], dev)
     if takes_ladder(cfg):
@@ -1573,6 +1653,14 @@ def ladder_f32_phase(torch, dev, cfg, params, max_seq: int,
         raise AssertionError(f"{cfg.arch_id}: the f32 {kind} prefill "
                              f"differs from the one-shot prefill or from "
                              f"its eager twin")
+    _record_f32(f"{cfg.arch_id} f32 {kind} prefill ({length} tokens)",
+                _attends(cfg))
+
+
+def _attends(cfg) -> bool:
+    """Whether ``cfg`` has a layer that runs the flash kernel."""
+    return any(m in ("attn", "attn_local", "mla")
+               for g in cfg.groups for m in g.pattern)
 
 
 def chunked_prefill_phase(torch, dev, cfg, params, served,
@@ -1632,8 +1720,11 @@ def chunked_prefill_phase(torch, dev, cfg, params, served,
     served_f32 = cfg.compute_dtype == "float32"
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
     p32 = cast_params(c32, params)
+    _zero_counts()
     at, al, _ = run(c32, p32, torch.float32, whole, False)
     bt, bl, counts = run(c32, p32, torch.float32, split, served_f32)
+    if not served_f32:
+        _record_f32(f"{cfg.arch_id} f32 chunked prefill", _attends(cfg))
     err = float((bl - al).abs().max())
     first = float((bl[0] - al[0]).abs().max())
     recurrent = any(m in ("mlstm", "slstm", "rglru")
@@ -1941,11 +2032,38 @@ def _zero_counts():
     from repro_torch import kernels
     for name in COUNTED:
         getattr(kernels, name).launches = 0
+    kernels.flash_attention.f32_launches = 0
+    kernels.flash_attention_bwd.f32_launches = 0
 
 
 def _read_counts() -> dict:
     from repro_torch import kernels
     return kernels.launch_counts(COUNTED)
+
+
+def _read_f32_counts() -> dict:
+    from repro_torch import kernels
+    return kernels.launch_counts(kernels.F32_ROUTES)
+
+
+#: the f32 paths' launches of the flash kernels' f32 route, by path
+F32_PATHS: dict = {}
+
+
+def _record_f32(path: str, forward: bool, backward: bool = False) -> None:
+    """The flash launches since the last ``_zero_counts()``, an f32 path's:
+    each went through the f32 route, and the route ran (forward,
+    ``backward``) where the path attends.  Kept in ``F32_PATHS``."""
+    counts, f32 = _read_counts(), _read_f32_counts()
+    fwd, bwd = f32["flash_attention_f32"], f32["flash_attention_bwd_f32"]
+    print(f"  {path}: the f32 route's launches: flash {fwd} of "
+          f"{counts['flash_attention']}, flash_bwd {bwd} of "
+          f"{counts['flash_attention_bwd']}")
+    if fwd != counts["flash_attention"] or bwd != counts[
+            "flash_attention_bwd"] or (forward and not fwd) or (
+            backward and not bwd):
+        raise AssertionError(f"{path}: a flash launch missed the f32 route")
+    F32_PATHS[path] = f32
 
 
 def pipeline_case(torch, dev, card: str, mesh) -> dict:
@@ -2879,6 +2997,10 @@ def main() -> int:
     for k, by_path in apps_phase(torch, dev, card).items():
         launches.setdefault(k, {}).update(by_path)
 
+    # the f32 route's rows: the f32 paths of phases 4 and 5
+    for path, counts in F32_PATHS.items():
+        for k, n in counts.items():
+            launches.setdefault(k, {})[path] = n
     for name, row in chosen.items():
         row["launches"] = sum(launches[name].values())
         row["launches_by_path"] = launches[name]

@@ -16,7 +16,9 @@ implementation gives the outputs' shapes for a fake tensor
 sources with ``nvcc`` for ``sm_90a`` at first use.
 
 A wrapper counts a launch when its Python code runs, which a CUDA
-graph's replay does not do: :class:`GraphLaunches` takes back what a
+graph's replay does not do (the flash wrappers count their f32 route's
+launches apart as well, as ``flash_attention_f32`` and
+``flash_attention_bwd_f32``): :class:`GraphLaunches` takes back what a
 capture counted (a capture launches nothing) and adds it again at every
 replay.  Every capture of the port runs inside its ``capture()``, which
 also keeps Python's cyclic garbage collector out of the capture.
@@ -32,7 +34,8 @@ from .rglru_scan.ops import (rglru_scan, rglru_scan_bwd, rglru_scan_bwd_plain,
                              rglru_scan_plain)
 from .moe_gating.ops import moe_gating, moe_gating_plain
 
-__all__ = ["COUNTED", "GraphLaunches", "launch_counts", "flash_attention",
+__all__ = ["COUNTED", "F32_ROUTES", "GraphLaunches", "launch_counts",
+           "flash_attention",
            "flash_attention_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "decode_attention",
            "decode_attention_plain", "rglru_scan", "rglru_scan_plain",
@@ -42,20 +45,31 @@ __all__ = ["COUNTED", "GraphLaunches", "launch_counts", "flash_attention",
 #: the wrappers that count their kernels' launches (``<wrapper>.launches``)
 COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
            "flash_attention_bwd", "rglru_scan_bwd")
+#: the flash kernels' f32 routes, counted apart as well
+#: (``<wrapper>.f32_launches``, under the wrapper's name and ``_f32``)
+F32_ROUTES = ("flash_attention_f32", "flash_attention_bwd_f32")
+
+
+def _counter(name: str) -> tuple[object, str]:
+    """The wrapper and the attribute that count ``name``'s launches."""
+    if name in F32_ROUTES:
+        return globals()[name.removesuffix("_f32")], "f32_launches"
+    return globals()[name], "launches"
 
 
 def launch_counts(names=COUNTED) -> dict[str, int]:
-    """Each named wrapper's launch counter."""
-    return {name: globals()[name].launches for name in names}
+    """Each named wrapper's (or f32 route's) launch counter."""
+    return {name: getattr(*_counter(name)) for name in names}
 
 
 class GraphLaunches:
     """The kernel launches a captured CUDA graph holds, by wrapper.
 
     ``with counts.capture(): <capture>`` records what the wrappers counted
-    while the graph was captured into ``per_replay`` and takes it back
-    from the counters; ``counts.replay(graph)`` replays the graph and adds
-    ``per_replay`` to them.
+    while the graph was captured into ``per_replay`` (and what the f32
+    routes of the watched flash wrappers counted into
+    ``f32_per_replay``) and takes it back from the counters;
+    ``counts.replay(graph)`` replays the graph and adds both to them.
 
     ``capture()`` also turns the cyclic garbage collector off for its
     span.  ``torch.cuda.graph`` no longer collects before a capture, so a
@@ -67,11 +81,15 @@ class GraphLaunches:
 
     def __init__(self, names=COUNTED):
         self.names = tuple(names)
+        self.routes = tuple(r for r in F32_ROUTES
+                            if r.removesuffix("_f32") in self.names)
         self.per_replay = dict.fromkeys(self.names, 0)
+        self.f32_per_replay = dict.fromkeys(self.routes, 0)
 
     @contextlib.contextmanager
     def capture(self):
-        before = launch_counts(self.names)
+        watched = self.names + self.routes
+        before = launch_counts(watched)
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -79,8 +97,10 @@ class GraphLaunches:
         finally:
             if collecting:
                 gc.enable()
-            after = launch_counts(self.names)
-            self.per_replay = {n: after[n] - before[n] for n in self.names}
+            after = launch_counts(watched)
+            held = {n: after[n] - before[n] for n in watched}
+            self.per_replay = {n: held[n] for n in self.names}
+            self.f32_per_replay = {n: held[n] for n in self.routes}
             self._add(-1)
 
     def replay(self, graph) -> None:
@@ -88,5 +108,6 @@ class GraphLaunches:
         self._add(1)
 
     def _add(self, sign: int) -> None:
-        for name, n in self.per_replay.items():
-            globals()[name].launches += sign * n
+        for name, n in (self.per_replay | self.f32_per_replay).items():
+            wrapper, attr = _counter(name)
+            setattr(wrapper, attr, getattr(wrapper, attr) + sign * n)

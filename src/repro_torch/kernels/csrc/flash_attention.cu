@@ -28,8 +28,8 @@
 // byte (bf16 tensor-core peak over HBM rate), that is up to S ≈ 1180, the
 // bound is bytes; past it, arithmetic on the tensor cores.
 //
-// Two kernels, chosen by dtype (not a fallback: a failed bf16 launch
-// raises):
+// Two kernels, both on the tensor cores, chosen by dtype (not a
+// fallback: a failed launch of either raises):
 //
 // * bf16 — tensor cores.  One block of three warpgroups per (128-row q
 //   tile, q head, batch row).  Warpgroup 2 is the producer: one thread
@@ -59,10 +59,49 @@
 //   arithmetic of a tile none of its rows can see.  The tensor maps are
 //   built on the host from the wrapper's strides; cuTensorMapEncodeTiled
 //   comes from cudaGetDriverEntryPoint, so nothing links libcuda.
-// * float32 — the CUDA-core kernel of the first port (not redesigned):
-//   f32 FMAs out of shared memory, one block of 256 threads per (64-row
-//   q tile, q head, batch row).  It keeps the f32 path exact to ~1e-6,
-//   which TF32 tensor cores would not.
+// * float32 — tensor cores, three TF32 products per product (namespace
+//   `tf32`).  Each f32 operand x is split into big = cvt.rna.tf32(x) and
+//   small = cvt.rna.tf32(x - big) (x - big is exact in f32), and a·b is
+//   taken as big·big + big·small + small·big on mma.sync m16n8k8: about
+//   2^-21·|a·b| is left of each product, where one TF32 rounding leaves
+//   2^-11, far outside the card's 2e-5 check.  Q·Kᵀ and P·V both, with P
+//   split where the softmax forms it.  The rounding is written as two
+//   integer instructions (`to_tf32`, equal to the cvt on every finite
+//   f32: `flash_attention_tf32_mismatches`); ptxas made the cvt four or
+//   five, and the kernels ran 15-18% slower with it.  The tensor cores add
+//   into their f32 accumulator without rounding to nearest, and over
+//   hundreds of products into one accumulator that drift reached 4e-5 of
+//   a gradient (the first design, on the card): so big·big and the two
+//   cross products sum into accumulators of their own, at most 128
+//   columns of D (S) or one kv tile (O, whose rescale by the new max
+//   rides on the same FMA), and are added in f32.
+//
+//   What bounds it: f32-accurate work runs at 495/3 = 165 TFLOP/s at best (the
+//   TF32 peak over three products), about 49 operations a byte of HBM; causal
+//   attention in f32 does S/8 operations a byte (q, k, v and out moved once),
+//   so the products bound it from S ≈ 400 on.  On the card the split's ALU
+//   work comes first: five instructions an element a warp reads.  Splitting
+//   each K and V tile once per block into shared (big, small) pairs instead
+//   was slower on the card (two more barriers a tile, and the warps idle while
+//   the block splits: PERF.md §6), so each warp splits what it reads.  One
+//   block of eight warps per (128-row q tile, q head, batch row), 16 rows a
+//   warp, and kv tiles of 64 rows where they fit (D and Dv up to 128;
+//   `shape_for` gives the rest: MLA eight warps and 32 rows, D = Dv = 256 four
+//   and 32).  The block's threads copy the Q tile once and K and V tiles into
+//   two stages with cp.async (16 bytes a copy where every row starts on 16
+//   bytes, else 4: a template flag), the next tile in flight while the warps
+//   use the last.  Shared memory holds the raw f32 rows, `tile_ld` floats
+//   apart (4 mod 32: every fragment read is free of bank conflicts).  S = Q·Kᵀ
+//   reads Q and K as scalar fragments; the mask and the online softmax run in
+//   registers (row max and sum over a quad, exp2 with the scale folded into it
+//   as in the bf16 kernel); P feeds P·V from the registers, its columns 2t and
+//   2t + 1 taken as the k of the product (no shuffle), and V is read 16 bytes
+//   at a time along its columns (rows 2t and 2t + 1); the output columns come
+//   out permuted within each group of 32 and are stored as float4s where they
+//   belong.  Instantiated for Dv in 1-4, 6 or 8 groups of 32 columns (64-row
+//   kv tiles for 1-4); D and Dv any multiple of 8 up to 256.  Shared memory
+//   (`smem_bytes`): 153,600 bytes at D = Dv = 96, 184,320 at D = 192, Dv =
+//   128, 199,680 at D = Dv = 256.
 //
 // Layout: q (B, Sq, H, D), k (B, Sk, K, D), v (B, Sk, K, Dv) with the
 // last dimension contiguous and the other strides given in elements (for
@@ -113,202 +152,297 @@ __device__ __forceinline__ int query_offset(const Params& p) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// float32: tensor cores, three TF32 products per product (mma.sync)
 // ---------------------------------------------------------------------------
-namespace simt {
+namespace tf32 {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // kv rows per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
+using namespace hopper;
 
-size_t smem_bytes(int D, int Dv) {
-  const int ld = D + 1;  // odd row stride: K-tile reads are conflict-free
-  return sizeof(float) *
-         (size_t(BQ) * ld + size_t(BK) * ld + size_t(BK) * Dv +
-          size_t(BQ) * (BK + 1) + 3 * BQ);
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t SM_SMEM = 228 * 1024;  // of an SM, 1 KB a block reserved
+
+// a block's shared memory: the Q tile (16 rows a warp) and two stages of
+// a K and a V tile of bk rows, each row `tile_ld` floats
+size_t smem_bytes(int warps, int bk, int D, int Dv) {
+  return sizeof(float) * (size_t(16 * warps) * tile_ld(D) +
+                          2 * size_t(bk) * (tile_ld(D) + tile_ld(Dv)));
 }
 
-// NJ: output columns tx + 16 j (of Dv), j < NJ, that each thread
-// accumulates
-template <int NJ>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, Dv = p.Dv;
-  const int ld = D + 1;
-  float* Qs = smem;                   // BQ x ld
-  float* Ks = Qs + BQ * ld;           // BK x ld
-  float* Vs = Ks + BK * ld;           // BK x Dv
-  float* Ps = Vs + BK * Dv;           // BQ x (BK + 1): scores, then probs
-  float* row_m = Ps + BQ * (BK + 1);  // running max
-  float* row_l = row_m + BQ;          // running denominator
-  float* row_a = row_l + BQ;          // this tile's rescale factor
+bool fits(int warps, int bk, int D, int Dv) {
+  return smem_bytes(warps, bk, D, Dv) <= size_t(BLOCK_SMEM);
+}
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * BQ;
+// (warps, kv tile rows): eight warps (128 query rows) and 64 rows where
+// they fit (D and Dv up to 128); else four and 32 rows where two such blocks
+// share an SM; else eight and 32 (MLA's D = 192, Dv = 128); else four and
+// 32 (D = Dv = 256).  On the card eight warps and 64 rows took phi3's
+// heads in 0.081 ms where four and 32 took 0.100 (fewer barriers and
+// copies a row, and each A fragment serves eight n-tiles), but four and
+// 64 took MLA's in 0.489 ms where eight and 32 took 0.397
+// (launch/probe_flash_f32.py; H100 at 700 W).
+void shape_for(int D, int Dv, int* warps, int* bk) {
+  *warps = 8;
+  *bk = 64;
+  if (groups32(Dv) <= 4 && fits(8, 64, D, Dv)) return;
+  *bk = 32;
+  if (2 * (smem_bytes(4, 32, D, Dv) + 1024) > SM_SMEM && fits(8, 32, D, Dv))
+    return;
+  *warps = 4;
+}
+
+// NV: 32-column groups of Dv the accumulators hold (groups32).  VEC: every
+// row of q, k and v starts on 16 bytes and is copied 16 bytes at a time;
+// else 4.  BK: kv rows a tile.
+template <int NV, bool VEC, int BK>
+__global__ void __launch_bounds__(256) flash_f32_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x / 32, BQ = 16 * warps;
+  const int ldk = tile_ld(p.D), ldv = tile_ld(p.Dv);
+  float* const sq = smem;                // BQ x ldk
+  float* const sk = sq + BQ * ldk;       // [2] BK x ldk
+  float* const sv = sk + 2 * BK * ldk;   // [2] BK x ldv
+
+  const float scale_log2 = p.scale * LOG2E;
+  constexpr float LN2 = 0.6931471805599453f;
+  // the longest q tiles (most kv tiles under the causal mask) go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.K);
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i - r * D, s = q0 + r;
-    Qs[r * ld + c] = s < p.Sq ? q[s * p.q_ss + c] : 0.f;
-  }
-  if (tid < BQ) {
-    row_m[tid] = NEG;
-    row_l[tid] = 0.f;
-  }
-
-  // kv tiles some row of this q tile can see (positions, not rows)
   const int qo = query_offset(p);
+  // kv tiles some row of this q tile can see (positions, not rows)
   const int q_last = min(q0 + BQ, p.Sq) - 1;
-  int k_end = p.Sk;
-  if (p.causal) k_end = min(k_end, qo + q_last + 1);
+  const int k_end = p.causal ? min(p.Sk, qo + q_last + 1) : p.Sk;
   int k_begin = p.window > 0 ? max(0, qo + q0 - p.window + 1) : 0;
   k_begin -= k_begin % BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  const int nd = (Dv + 15) / 16;  // output columns per thread, <= NJ
-  float acc[4][NJ];
+  // the Q tile and the first K, V tile; each later tile is copied while
+  // the one before it is used
+  load_rows<VEC>(smem_u32(sq), ldk, q, p.q_ss, q0, BQ, p.Sq, p.D);
+  if (n_tiles) {
+    load_rows<VEC>(smem_u32(sk), ldk, k, p.k_ss, k_begin, BK, p.Sk, p.D);
+    load_rows<VEC>(smem_u32(sv), ldv, v, p.v_ss, k_begin, BK, p.Sk, p.Dv);
+  }
+  cp_async_commit();
+
+  // 16 query rows a warp: this thread holds rows r0 and r0 + 8, at key
+  // positions qo + r0 and qo + r0 + 8
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int qa = q0 + 16 * warp;           // this warp's first row
+  const int qb = min(qa + 15, p.Sq - 1);   // and its last live one
+  const bool live = qa < p.Sq;
+  const int r0 = qa + g;
+  const int pa = qo + qa, pb = qo + qb, p0 = qo + r0;  // their positions
+  const float* qw = sq + 16 * warp * ldk;
+
+  float o[NV][4][4];  // 32-column group c, n-tile i (frag_b_cols' order)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed; Q tile and stats set
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i - r * D, s = k0 + r;
-      Ks[r * ld + c] = s < p.Sk ? k[s * p.k_ss + c] : 0.f;
-    }
-    for (int i = tid; i < BK * Dv; i += THREADS) {
-      const int r = i / Dv, c = i - r * Dv, s = k0 + r;
-      Vs[r * Dv + c] = s < p.Sk ? v[s * p.v_ss + c] : 0.f;
-    }
-    __syncthreads();
-
-    // scores: rows ty + 16 i, columns tx + 16 j
-    float sc[4][4];
+  for (int c = 0; c < NV; ++c)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const int qpos = qo + q0 + r, kpos = k0 + c;
-        float bias = 0.f;
-        if (kpos >= p.Sk) bias += NEG;
-        if (p.causal && qpos < kpos) bias += NEG;
-        if (p.window > 0 && qpos - kpos >= p.window) bias += NEG;
-        Ps[r * (BK + 1) + c] = sc[i][j] * p.scale + bias;
-      }
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) o[c][i][e] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 
-    // online softmax: four neighbouring lanes per row
-    {
-      const int r = tid >> 2, part = tid & 3;
-      float* prow = Ps + r * (BK + 1);
-      const float m_prev = row_m[r];
-      float mx = NEG;
-      for (int c = part; c < BK; c += 4) mx = fmaxf(mx, prow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = part; c < BK; c += 4) {
-        const float e = expf(prow[c] - m_new);
-        prow[c] = e;
-        sum += e;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = expf(m_prev - m_new);
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
-      }
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; every warp is done with tile i - 1
+    if (i + 1 < n_tiles) {
+      const int s = (i + 1) & 1, kn = k_begin + (i + 1) * BK;
+      load_rows<VEC>(smem_u32(sk + s * BK * ldk), ldk, k, p.k_ss, kn, BK,
+                     p.Sk, p.D);
+      load_rows<VEC>(smem_u32(sv + s * BK * ldv), ldv, v, p.v_ss, kn, BK,
+                     p.Sk, p.Dv);
     }
-    __syncthreads();
+    cp_async_commit();
+    const int k0 = k_begin + i * BK;
+    // a tile that none of this warp's rows can see: no arithmetic
+    if (!live || (p.causal && k0 > pb) ||
+        (p.window > 0 && pa - (k0 + BK - 1) >= p.window))
+      continue;
+    const float* kt = sk + (i & 1) * BK * ldk;
+    const float* vt = sv + (i & 1) * BK * ldv;
 
-    // acc = acc * alpha + P V: rows ty + 16 i, columns tx + 16 j
+    // S = Q Kᵀ: 16 x 32 a warp, over D
+    float sc[BK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_a[ty + 16 * i];
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= a;
-    }
-    for (int c = 0; c < BK; ++c) {
-      float pr[4];
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    product_rows<BK / 8>(sc, qw, ldk, kt, ldk, p.D, g, t4);
+
+    // sc[j][e] is (r0, col k0 + 8j + 2 t4 + e) and sc[j][2 + e] is (r0 + 8,
+    // the same col).  As in the bf16 kernel, a tile on a mask edge is
+    // scaled to log2 units and masked here; any other keeps its raw scores,
+    // and the scale folds into the one FFMA before each exp2.
+    const bool masked = (p.causal && k0 + BK - 1 > pa) || k0 + BK > p.Sk ||
+                        (p.window > 0 && pb - k0 >= p.window);
+    const bool scaled = masked || !(scale_log2 > 0.f);
+    if (scaled) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ps[(ty + 16 * i) * (BK + 1) + c];
+      for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int dc = tx + 16 * j;
-        if (j < nd && dc < Dv) {
-          const float vv = Vs[c * Dv + dc];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
+        for (int e = 0; e < 2; ++e) {
+          const int kp = k0 + 8 * j + 2 * t4 + e;
+          float x0 = sc[j][e] * scale_log2, x1 = sc[j][2 + e] * scale_log2;
+          if (masked) {
+            if (kp >= p.Sk) {
+              x0 += NEG;
+              x1 += NEG;
+            }
+            if (p.causal) {
+              if (p0 < kp) x0 += NEG;
+              if (p0 + 8 < kp) x1 += NEG;
+            }
+            if (p.window > 0) {
+              if (p0 - kp >= p.window) x0 += NEG;
+              if (p0 + 8 - kp >= p.window) x1 += NEG;
+            }
+          }
+          sc[j][e] = x0;
+          sc[j][2 + e] = x1;
         }
       }
     }
-  }
-  __syncthreads();
-
-  float* out = static_cast<float*>(p.out);
+    const float cs = scaled ? 1.f : scale_log2;
+    // online softmax: a row lives in the four lanes of one quad
+    float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, s = q0 + r;
-    if (s >= p.Sq) continue;
-    const float inv = 1.f / fmaxf(row_l[r], 1e-30f);
-    if (p.lse && tx == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + s] =
-          row_m[r] + logf(fmaxf(row_l[r], 1e-30f));
-    float* orow =
-        out + ((long long)(b) * p.Sq + s) * p.H * Dv + (long long)h * Dv;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int dc = tx + 16 * j;
-      if (j < nd && dc < Dv) orow[dc] = acc[i][j] * inv;
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
     }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m[0], mx0 * cs), mn1 = fmaxf(m[1], mx1 * cs);
+    const float al0 = ex2(m[0] - mn0), al1 = ex2(m[1] - mn1);
+    m[0] = mn0;
+    m[1] = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float e0 = ex2(fmaf(sc[j][e], cs, -mn0));
+        const float e1 = ex2(fmaf(sc[j][2 + e], cs, -mn1));
+        sc[j][e] = e0;
+        sc[j][2 + e] = e1;
+        sum0 += e0;
+        sum1 += e1;
+      }
+    }
+    l[0] = l[0] * al0 + sum0;  // this thread's columns; quad-summed last
+    l[1] = l[1] * al1 + sum1;
+
+    // O = O·alpha + P V over the tile's kv rows, P straight from the
+    // registers
+    uint32_t pb_[BK / 8][4], ps[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) frag_a_acc(sc[j], pb_[j], ps[j]);
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+      if (32 * c < p.Dv)
+        product_cols<BK / 8>(o[c], pb_, ps, vt + 32 * c, ldv, g, t4, al0,
+                             al1);
   }
+
+  // normalise and store: rows r0 and r0 + 8
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
+    l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
+  }
+  if (!live) return;
+  if (p.lse && t4 == 0) {
+    // m is in log2 units of the scaled scores: lse = (m + log2 l) · ln 2
+    float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
+    if (r0 < p.Sq) lse[r0] = (m[0] + log2f(fmaxf(l[0], 1e-30f))) * LN2;
+    if (r0 + 8 < p.Sq) lse[r0 + 8] = (m[1] + log2f(fmaxf(l[1], 1e-30f))) * LN2;
+  }
+  const long long stride = (long long)p.H * p.Dv;
+  float* out = static_cast<float*>(p.out) +
+               ((long long)b * p.Sq + qa) * stride + (long long)h * p.Dv;
+  const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
+  const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+#pragma unroll
+  for (int c = 0; c < NV; ++c)
+    store_group(o[c], out, stride, g, p.Sq - qa, 32 * c + 8 * t4, p.Dv, inv0,
+                inv1);
 }
 
-template <int NJ>
-int launch(const Params& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.D, p.Dv);
+template <int NV, bool VEC, int BK>
+int launch(const Params& p, int B, int warps, cudaStream_t stream) {
+  const size_t smem = smem_bytes(warps, BK, p.D, p.Dv);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_f32_kernel<NV, VEC, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((p.Sq + BQ - 1) / BQ, p.H, B);
-  flash_fwd_kernel<NJ><<<grid, THREADS, smem, stream>>>(p);
+  dim3 grid((p.Sq + 16 * warps - 1) / (16 * warps), p.H, B);
+  flash_f32_kernel<NV, VEC, BK><<<grid, 32 * warps, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 
-int run(const Params& p, int B, cudaStream_t stream) {
-  if (p.Dv <= 128) return launch<8>(p, B, stream);
-  return launch<16>(p, B, stream);
+// kv tiles of 64 rows fit beside eight warps' Q tiles only up to D = 128
+// (and Dv 128): 1-4 groups
+template <int NV, bool VEC>
+int run_nv(const Params& p, int B, cudaStream_t stream) {
+  int warps, bk;
+  shape_for(p.D, p.Dv, &warps, &bk);
+  if (!fits(warps, bk, p.D, p.Dv)) return -1;
+  if (bk == 32) return launch<NV, VEC, 32>(p, B, warps, stream);
+  if constexpr (NV <= 4) return launch<NV, VEC, 64>(p, B, warps, stream);
+  return -1;
 }
 
-}  // namespace simt
+template <bool VEC>
+int run_vec(const Params& p, int B, cudaStream_t stream) {
+  switch (groups32(p.Dv)) {
+    case 1: return run_nv<1, VEC>(p, B, stream);
+    case 2: return run_nv<2, VEC>(p, B, stream);
+    case 3: return run_nv<3, VEC>(p, B, stream);
+    case 4: return run_nv<4, VEC>(p, B, stream);
+    case 6: return run_nv<6, VEC>(p, B, stream);
+    default: return run_nv<8, VEC>(p, B, stream);
+  }
+}
+
+// a row of every (batch, head, position) starts on 16 bytes: the base is
+// aligned and each stride that is ever stepped a multiple of 4 floats
+bool rows16(const void* ptr, int batch, int seq, int heads, long long sb,
+            long long ss, long long sh) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
+         (batch == 1 || sb % 4 == 0) && (seq == 1 || ss % 4 == 0) &&
+         (heads == 1 || sh % 4 == 0);
+}
+
+int run(const Params& p, int B, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(p.out) % 16) return -1;
+  const bool vec = rows16(p.q, B, p.Sq, p.H, p.q_sb, p.q_ss, p.q_sh) &&
+                   rows16(p.k, B, p.Sk, p.K, p.k_sb, p.k_ss, p.k_sh) &&
+                   rows16(p.v, B, p.Sk, p.K, p.v_sb, p.v_ss, p.v_sh);
+  return vec ? run_vec<true>(p, B, stream) : run_vec<false>(p, B, stream);
+}
+
+// every f32 bit pattern from `first` on, a grid stride apart: counts the
+// finite ones whose to_tf32 is not the cvt's
+__global__ void tf32_check_kernel(unsigned long long* mismatches) {
+  unsigned long long n = 0;
+  for (unsigned long long i = blockIdx.x * blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float(uint32_t(i));
+    if (isfinite(x) && to_tf32(x) != tf32_rna(x)) ++n;
+  }
+  if (n) atomicAdd(mismatches, n);
+}
+
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (wgmma), TMA, mbarrier ring
@@ -662,6 +796,17 @@ int run(Params p, int B, cudaStream_t stream) {
 
 }  // namespace
 
+// The f32 route's rounding against cvt.rna.tf32.f32 over all 2^32 bit
+// patterns: adds the finite inputs they round apart to *mismatches (a
+// device counter the caller zeroed).  Returns 0 once launched, or a
+// cudaError_t.
+extern "C" int flash_attention_tf32_mismatches(unsigned long long* mismatches,
+                                               void* stream) {
+  tf32::tf32_check_kernel<<<1024, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(mismatches);
+  return int(cudaGetLastError());
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0 once launched, a
 // cudaError_t, 1000 + a CUresult if a tensor map could not be built, or
 // -1 for arguments the kernel does not take (for bf16, a (D, Dv) box pair
@@ -709,7 +854,7 @@ extern "C" int flash_attention_fwd(
   p.q_offset_dev = q_offset_dev;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return simt::run(p, B, s);
+  if (dtype == 0) return tf32::run(p, B, s);
   if (dtype == 1) return tc::run(p, B, s);
   return -1;
 }

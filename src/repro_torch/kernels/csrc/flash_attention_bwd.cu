@@ -35,8 +35,8 @@
 //  3. dQ: one block per (q tile, head, b) loops over the kv tiles it can
 //     see and accumulates dQ.
 //
-// Two routes, chosen by dtype (not a fallback: a failed bf16 launch
-// raises):
+// Two routes, both on the tensor cores, chosen by dtype (not a
+// fallback: a failed launch of either raises):
 //
 // * bf16 — tensor cores (namespace `tc`), the forward's tools
 //   (hopper.cuh): TMA loads with 128-byte swizzle into mbarrier rings, one
@@ -78,18 +78,55 @@
 //     is two).  Instantiated for the (D boxes, Dv boxes) pairs of the
 //     forward: (1, 1), (2, 2), (4, 4) and MLA's (3, 2); any other pair is
 //     refused.
-// * float32 — CUDA cores, the first port (not redesigned): f32 FMAs out
-//   of shared memory, each thread a block of BQ/16 x BK/16 of a tile
-//   product, with odd row strides so reads are free of bank conflicts.
-//   Tiles by the widest head dim so that K, V, Q and dO fit: (BQ, BK) =
-//   (64, 64) up to 64, (32, 64) up to 128 and (64, 32) up to 256 (215 KB
-//   of shared memory at D = Dv = 256).  Passes 2 and 3 each recompute S
-//   and dP: 7 products per tile pair.  It keeps the f32 path exact to
-//   ~1e-6, which TF32 tensor cores would not.
+// * float32 — tensor cores, three TF32 products per product (namespace
+//   `tf32`, the forward's tools in hopper.cuh): every product — S, dP,
+//   dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K — is big·big + big·small +
+//   small·big on mma.sync m16n8k8, each f32 operand split into TF32 big =
+//   rna(x) and small = rna(x - big) (`to_tf32`: cvt.rna.tf32.f32's
+//   rounding in two integer instructions), P and dS where they are
+//   formed: about 2^-21·|a·b| is left of each product, where one TF32
+//   rounding leaves 2^-11.  big·big and the cross products go into
+//   accumulators of their own, at most 128 columns of D or Dv or one q or
+//   kv tile, added in f32: summed over a whole tile loop inside the
+//   tensor cores' accumulator, which does not round to nearest, dK
+//   drifted by 4e-5 of its value at MLA's S 2048 (the first design, on
+//   the card).  Bound: the five products at 165 TFLOP/s (the TF32 peak
+//   over three), about 49 operations a byte; the kernels do 7 (passes 2
+//   and 3 each recompute S and dP), and on the card the split's ALU work
+//   comes first.  No producer: the block's threads copy tiles with
+//   cp.async (16 bytes; the wrapper hands over 16-byte aligned bases) into
+//   two stages, the next in flight while the warps use the last; shared
+//   tiles hold raw f32 rows `tile_ld` floats apart, split by the warp
+//   that reads them (splitting each tile once per block into shared
+//   (big, small) pairs instead was slower: the warps idle while the block
+//   splits).
+//   - dK/dV: 8 kv rows a warp, four warps (32 rows: 16 kv tiles × 8 q heads =
+//     128 blocks at H 8, K 2, S 512, where the CUDA-core kernels' 64-row tiles
+//     gave 64), or eight (64 rows) where two blocks of four do not share an SM
+//     but one of eight fits (MLA: with four, its backward took 31.3 ms on the
+//     card, with eight 19.9), streaming q tiles of 32 rows with their
+//     (lse·log2 e, D) pairs.  The first half of the warps hold 16 kv rows each
+//     and compute Sᵀ = K Qᵀ, Pᵀ (0 where masked; lse = +inf past Sq) and dV +=
+//     Pᵀ dO; the second half the same rows' dPᵀ = V dOᵀ, then, once Pᵀ is
+//     handed over in shared memory (each lane reads back the elements its twin
+//     wrote), dSᵀ and dK += dSᵀ Q.  One accumulator array serves dV in the one
+//     role and dK in the other.
+//   - dQ: 16 q rows a warp, Q and dO copied once, kv tiles streamed: four
+//     warps and 64 rows, else 32, where two such blocks share an SM, else
+//     the first of (8, 32), (8, 24), (8, 16), (4, 32), (4, 16) warps and
+//     rows that fits (minicpm: (4, 64); MLA: (8, 24); D = Dv = 256: (4,
+//     16)).  S, dP, dS in registers, dQ += dS K.
+//   A product whose k runs over a C tile's columns (Pᵀ dO, dSᵀ Q, dS K)
+//   takes the tile's columns 2t and 2t + 1 as k = t and t + 4 and reads
+//   its B operand 16 bytes at a time along the columns (`frag_b_cols`).
+//   Instantiated for max(D, Dv) in 1-4, 6 or 8 groups of 32 columns; D and
+//   Dv any multiple of 8 up to 256.  `bwd_launch_shape` (ops.py) mirrors
+//   the tiles and shared memory; launch/probe_flash_f32.py times the
+//   choices against their alternatives.
 //
 // Layout: q (B, Sq, H, D), k (B, Sk, K, D), v (B, Sk, K, Dv), o and dO
 // (B, Sq, H, Dv), dq, dk, dv like q, k, v: all contiguous, of one type
-// (float32 or bfloat16; for bf16 q, k, v, o and dO 16-byte aligned);
+// (float32 or bfloat16), q, k, v, o and dO 16-byte aligned;
 // lse (B, H, Sq) f32.  D and Dv are multiples of 8, at most 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,7 +137,7 @@
 namespace {
 
 constexpr int MAX_D = 256;
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
+constexpr int THREADS = 256;  // of the D_i and GQA reduction kernels
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -153,200 +190,6 @@ __global__ void __launch_bounds__(THREADS) delta_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores.  Shared pieces of passes 2 and 3
-// ---------------------------------------------------------------------------
-// rows [r0, r0 + n) of a (.., S, heads, width) tensor at head `head` into
-// a shared tile of n x (width + 1) f32; rows past S are zeros
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int n, int S, int heads, int head,
-                                          int width) {
-  const int ld = width + 1;
-  for (int i = threadIdx.x; i < n * width; i += THREADS) {
-    const int r = i / width, c = i - r * width, s = r0 + r;
-    dst[r * ld + c] =
-        s < S ? to_f32(src[((long long)s * heads + head) * width + c]) : 0.f;
-  }
-}
-
-// The additive mask of the forward for (q position, k position)
-__device__ __forceinline__ float mask_bias(const Params& p, int qpos,
-                                           int kpos) {
-  float bias = 0.f;
-  if (kpos >= p.Sk) bias += NEG;
-  if (p.causal && qpos < kpos) bias += NEG;
-  if (p.window > 0 && qpos - kpos >= p.window) bias += NEG;
-  return bias;
-}
-
-// P and dS of a BQ x BK tile pair from the tiles in shared memory: each
-// thread its rows ty + 16 i, columns tx + 16 j.  Ps, dSs: BQ x (BK + 1).
-// Rows past Sq get P = dS = 0.
-template <int BQ, int BK>
-__device__ __forceinline__ void probs_tile(const Params& p, const float* Qs,
-                                           const float* dOs, const float* Ks,
-                                           const float* Vs,
-                                           const float* lse_s,
-                                           const float* del_s, float* Ps,
-                                           float* dSs, int q0, int k0) {
-  constexpr int RI = BQ / 16, RJ = BK / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int ld = p.D + 1, ldv = p.Dv + 1;
-  float sc[RI][RJ], dp[RI][RJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) sc[i][j] = dp[i][j] = 0.f;
-  for (int d = 0; d < p.D; ++d) {
-    float qa[RI], kb[RJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) qa[i] = Qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) kb[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
-  }
-  for (int d = 0; d < p.Dv; ++d) {
-    float oa[RI], vb[RJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) oa[i] = dOs[(ty + 16 * i) * ldv + d];
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) vb[j] = Vs[(tx + 16 * j) * ldv + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty + 16 * i, qpos = q0 + r;
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const int c = tx + 16 * j;
-      float pr = 0.f;
-      if (qpos < p.Sq)
-        pr = expf(sc[i][j] * p.scale + mask_bias(p, qpos, k0 + c) - lse_s[r]);
-      Ps[r * (BK + 1) + c] = pr;
-      dSs[r * (BK + 1) + c] = pr * (dp[i][j] - del_s[r]) * p.scale;
-    }
-  }
-}
-
-template <int BQ, int BK>
-constexpr size_t smem_floats(int D, int Dv) {
-  return size_t(BK) * (D + 1) + size_t(BK) * (Dv + 1) + size_t(BQ) * (D + 1) +
-         size_t(BQ) * (Dv + 1) + 2 * size_t(BQ) * (BK + 1) + 2 * BQ;
-}
-
-// ---------------------------------------------------------------------------
-// pass 2: dK, dV per kv tile
-// ---------------------------------------------------------------------------
-// NJ: columns tx + 16 j (j < NJ) of D and of Dv each thread accumulates
-template <typename T, int BQ, int BK, int NJ>
-__global__ void __launch_bounds__(THREADS) dkdv_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, Dv = p.Dv, ld = D + 1, ldv = Dv + 1;
-  float* Ks = smem;
-  float* Vs = Ks + BK * ld;
-  float* Qs = Vs + BK * ldv;
-  float* dOs = Qs + BQ * ld;
-  float* Ps = dOs + BQ * ldv;
-  float* dSs = Ps + BQ * (BK + 1);
-  float* lse_s = dSs + BQ * (BK + 1);
-  float* del_s = lse_s + BQ;
-
-  const int G = p.H / p.K;
-  const bool gqa = p.dk_ws != nullptr;
-  const int k0 = blockIdx.x * BK, unit = blockIdx.y, b = blockIdx.z;
-  const int kvh = gqa ? unit / G : unit;
-  const int h = unit;  // without the scratch G = 1: the kv head's own
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  constexpr int RK = BK / 16;
-
-  const T* q = static_cast<const T*>(p.q) + (long long)b * p.Sq * p.H * D;
-  const T* k = static_cast<const T*>(p.k) + (long long)b * p.Sk * p.K * D;
-  const T* v = static_cast<const T*>(p.v) + (long long)b * p.Sk * p.K * Dv;
-  const T* dout =
-      static_cast<const T*>(p.dout) + (long long)b * p.Sq * p.H * Dv;
-  const float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
-  const float* delta = p.delta + ((long long)b * p.H + h) * p.Sq;
-
-  load_tile<T>(Ks, k, k0, BK, p.Sk, p.K, kvh, D);
-  load_tile<T>(Vs, v, k0, BK, p.Sk, p.K, kvh, Dv);
-
-  float adk[RK][NJ], adv[RK][NJ];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  // the q rows that can see a key of this tile
-  const int k_last = min(k0 + BK, p.Sk) - 1;
-  int q_begin = p.causal ? k0 : 0;
-  q_begin -= q_begin % BQ;
-  const int q_end =
-      p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;  // exclusive
-  for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-    __syncthreads();  // the previous q tile fully used
-    load_tile<T>(Qs, q, q0, BQ, p.Sq, p.H, h, D);
-    load_tile<T>(dOs, dout, q0, BQ, p.Sq, p.H, h, Dv);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      const bool in = q0 + r < p.Sq;
-      lse_s[r] = in ? lse[q0 + r] : 0.f;
-      del_s[r] = in ? delta[q0 + r] : 0.f;
-    }
-    __syncthreads();
-    probs_tile<BQ, BK>(p, Qs, dOs, Ks, Vs, lse_s, del_s, Ps, dSs, q0, k0);
-    __syncthreads();
-    // dV[k][c] += P[q][k] dO[q][c]; dK[k][c] += dS[q][k] Q[q][c]
-    for (int r = 0; r < BQ; ++r) {
-      float pr[RK], ds[RK];
-#pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        pr[i] = Ps[r * (BK + 1) + ty + 16 * i];
-        ds[i] = dSs[r * (BK + 1) + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < Dv) {
-          const float o = dOs[r * ldv + c];
-#pragma unroll
-          for (int i = 0; i < RK; ++i) adv[i][j] = fmaf(pr[i], o, adv[i][j]);
-        }
-        if (c < D) {
-          const float qq = Qs[r * ld + c];
-#pragma unroll
-          for (int i = 0; i < RK; ++i) adk[i][j] = fmaf(ds[i], qq, adk[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int s = k0 + ty + 16 * i;
-    if (s >= p.Sk) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (gqa) {
-        const long long row = ((long long)b * p.Sk + s) * p.H + h;
-        if (c < D) p.dk_ws[row * D + c] = adk[i][j];
-        if (c < Dv) p.dv_ws[row * Dv + c] = adv[i][j];
-      } else {
-        const long long row = ((long long)b * p.Sk + s) * p.K + kvh;
-        if (c < D) static_cast<T*>(p.dk)[row * D + c] = from_f32<T>(adk[i][j]);
-        if (c < Dv)
-          static_cast<T*>(p.dv)[row * Dv + c] = from_f32<T>(adv[i][j]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // pass 2b (GQA): dK, dV = the sum of the group's G partials, in head order
 // ---------------------------------------------------------------------------
 template <typename T>
@@ -363,135 +206,6 @@ __global__ void __launch_bounds__(THREADS)
   float acc = 0.f;
   for (int g = 0; g < G; ++g) acc += src[(long long)g * width];
   out[i] = from_f32<T>(acc);
-}
-
-// ---------------------------------------------------------------------------
-// pass 3: dQ per q tile
-// ---------------------------------------------------------------------------
-template <typename T, int BQ, int BK, int NJ>
-__global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, Dv = p.Dv, ld = D + 1, ldv = Dv + 1;
-  float* Ks = smem;
-  float* Vs = Ks + BK * ld;
-  float* Qs = Vs + BK * ldv;
-  float* dOs = Qs + BQ * ld;
-  float* Ps = dOs + BQ * ldv;
-  float* dSs = Ps + BQ * (BK + 1);
-  float* lse_s = dSs + BQ * (BK + 1);
-  float* del_s = lse_s + BQ;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.K);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  constexpr int RQ = BQ / 16;
-
-  const T* q = static_cast<const T*>(p.q) + (long long)b * p.Sq * p.H * D;
-  const T* k = static_cast<const T*>(p.k) + (long long)b * p.Sk * p.K * D;
-  const T* v = static_cast<const T*>(p.v) + (long long)b * p.Sk * p.K * Dv;
-  const T* dout =
-      static_cast<const T*>(p.dout) + (long long)b * p.Sq * p.H * Dv;
-  const float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
-  const float* delta = p.delta + ((long long)b * p.H + h) * p.Sq;
-
-  load_tile<T>(Qs, q, q0, BQ, p.Sq, p.H, h, D);
-  load_tile<T>(dOs, dout, q0, BQ, p.Sq, p.H, h, Dv);
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const bool in = q0 + r < p.Sq;
-    lse_s[r] = in ? lse[q0 + r] : 0.f;
-    del_s[r] = in ? delta[q0 + r] : 0.f;
-  }
-
-  float adq[RQ][NJ];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) adq[i][j] = 0.f;
-
-  // the kv tiles some row of this q tile can see (as the forward's)
-  const int q_last = min(q0 + BQ, p.Sq) - 1;
-  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
-  int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  k_begin -= k_begin % BK;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous kv tile fully used; Q, dO, stats set
-    load_tile<T>(Ks, k, k0, BK, p.Sk, p.K, kvh, D);
-    load_tile<T>(Vs, v, k0, BK, p.Sk, p.K, kvh, Dv);
-    __syncthreads();
-    probs_tile<BQ, BK>(p, Qs, dOs, Ks, Vs, lse_s, del_s, Ps, dSs, q0, k0);
-    __syncthreads();
-    // dQ[q][c] += dS[q][k] K[k][c]
-    for (int c2 = 0; c2 < BK; ++c2) {
-      float ds[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) ds[i] = dSs[(ty + 16 * i) * (BK + 1) + c2];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float kk = Ks[c2 * ld + c];
-#pragma unroll
-          for (int i = 0; i < RQ; ++i) adq[i][j] = fmaf(ds[i], kk, adq[i][j]);
-        }
-      }
-    }
-  }
-
-  T* dq = static_cast<T*>(p.dq);
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int s = q0 + ty + 16 * i;
-    if (s >= p.Sq) continue;
-    const long long row = ((long long)b * p.Sq + s) * p.H + h;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) dq[row * D + c] = from_f32<T>(adq[i][j]);
-    }
-  }
-}
-
-template <typename T, int BQ, int BK, int NJ>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_floats<BQ, BK>(p.D, p.Dv) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, BQ, BK, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq_kernel<T, BQ, BK, NJ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
-  if (err != cudaSuccess) return int(err);
-
-  const long long rows = (long long)p.B * p.Sq * p.H;
-  delta_kernel<T><<<unsigned((rows + THREADS / 32 - 1) / (THREADS / 32)),
-                    THREADS, 0, stream>>>(p);
-  const int units = p.dk_ws ? p.H : p.K;
-  dim3 grid_kv((p.Sk + BK - 1) / BK, units, p.B);
-  dkdv_kernel<T, BQ, BK, NJ><<<grid_kv, THREADS, smem, stream>>>(p);
-  if (p.dk_ws) {
-    const int G = p.H / p.K;
-    const long long nk = (long long)p.B * p.Sk * p.K * p.D;
-    const long long nv = (long long)p.B * p.Sk * p.K * p.Dv;
-    reduce_kernel<T><<<unsigned((nk + THREADS - 1) / THREADS), THREADS, 0,
-                       stream>>>(p.dk_ws, static_cast<T*>(p.dk), nk, p.K, G,
-                                 p.D);
-    reduce_kernel<T><<<unsigned((nv + THREADS - 1) / THREADS), THREADS, 0,
-                       stream>>>(p.dv_ws, static_cast<T*>(p.dv), nv, p.K, G,
-                                 p.Dv);
-  }
-  dim3 grid_q((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  dq_kernel<T, BQ, BK, NJ><<<grid_q, THREADS, smem, stream>>>(p);
-  return int(cudaGetLastError());
-}
-
-// tiles by the widest head dim (module comment)
-template <typename T>
-int run(const Params& p, cudaStream_t stream) {
-  const int w = p.D > p.Dv ? p.D : p.Dv;
-  if (w <= 64) return launch<T, 64, 64, 4>(p, stream);
-  if (w <= 128) return launch<T, 32, 64, 8>(p, stream);
-  return launch<T, 64, 32, 16>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1112,6 +826,439 @@ int run(const Params& p, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// float32: tensor cores, three TF32 products per product (mma.sync)
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+using namespace hopper;
+using tc::hidden;
+using tc::inf;
+
+constexpr int BQ = 32;  // q rows of each tile a dK/dV block streams
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t SM_SMEM = 228 * 1024;  // of an SM, 1 KB a block reserved
+
+// whether two blocks of `bytes` share an SM
+bool two_fit(size_t bytes) { return 2 * (bytes + 1024) <= SM_SMEM; }
+
+// pass 2's shared memory at `warps` (8·warps kv rows): the block's K and V
+// tiles, two stages of (Q, dO, the rows' (lse·log2 e, D)) and the Pᵀ
+// hand-over
+size_t kv_smem(int warps, int D, int Dv) {
+  const size_t w = tile_ld(D) + tile_ld(Dv), kv = 8 * warps;
+  return sizeof(float) * (kv * w + 2 * (BQ * w + 2 * BQ) + kv * BQ);
+}
+
+// pass 3's at `warps` (16·warps q rows): the block's Q and dO tiles and
+// two stages of (K, V) tiles of `bk` rows
+size_t dq_smem(int warps, int D, int Dv, int bk) {
+  const size_t w = tile_ld(D) + tile_ld(Dv);
+  return sizeof(float) * (16 * warps * w + 2 * bk * w);
+}
+
+// ---------------------------------------------------------------------------
+// pass 2: dK, dV per kv tile of 8 rows a warp (32 or 64).  Warps 0 ..
+// W/2 - 1 (16 rows each) compute Sᵀ = K Qᵀ, Pᵀ and dV += Pᵀ dO; warps W/2
+// .. W - 1 the same rows' dPᵀ = V dOᵀ, dSᵀ = Pᵀ ⊙ (dPᵀ - D)·scale and dK
+// += dSᵀ Q, with Pᵀ handed over in shared memory.  N: 32-column groups of
+// max(D, Dv).
+// ---------------------------------------------------------------------------
+template <int N>
+__global__ void __launch_bounds__(256) dkdv_f32_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldk = tile_ld(p.D), ldv = tile_ld(p.Dv);
+  const int pairs = blockDim.x / 64, KV = 16 * pairs;
+  float* const sk = smem;                   // KV x ldk
+  float* const sv = sk + KV * ldk;          // KV x ldv
+  float* const sq = sv + KV * ldv;          // [2] BQ x ldk
+  float* const sdo = sq + 2 * BQ * ldk;     // [2] BQ x ldv
+  float2* const stats = reinterpret_cast<float2*>(sdo + 2 * BQ * ldv);
+  float4* const p_x = reinterpret_cast<float4*>(stats + 2 * BQ);
+
+  const bool gqa = p.dk_ws != nullptr;
+  const int k0 = blockIdx.x * KV, unit = blockIdx.y, b = blockIdx.z;
+  const int h = unit;  // the q head (G = 1 without the scratch)
+  const int kvh = gqa ? unit / (p.H / p.K) : unit;
+  const float* q =
+      static_cast<const float*>(p.q) + ((long long)b * p.Sq * p.H + h) * p.D;
+  const float* dout = static_cast<const float*>(p.dout) +
+                      ((long long)b * p.Sq * p.H + h) * p.Dv;
+  const float* k =
+      static_cast<const float*>(p.k) + ((long long)b * p.Sk * p.K + kvh) * p.D;
+  const float* v = static_cast<const float*>(p.v) +
+                   ((long long)b * p.Sk * p.K + kvh) * p.Dv;
+  const float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
+  const float* delta = p.delta + ((long long)b * p.H + h) * p.Sq;
+  // the q tiles whose rows can see a key of this tile
+  const int k_last = min(k0 + KV, p.Sk) - 1;
+  const int q_begin = p.causal ? k0 : 0;  // k0 is a multiple of BQ
+  const int q_end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;
+  const int n_tiles = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
+
+  // stage s: the Q and dO rows of q tile i and their stats; rows past Sq
+  // are zeros, and lse = +inf makes their P, and so dS, 0
+  auto load_stage = [&](int i) {
+    const int s = i & 1, q0 = q_begin + i * BQ;
+    load_rows<true>(smem_u32(sq + s * BQ * ldk), ldk, q, (long long)p.H * p.D,
+                    q0, BQ, p.Sq, p.D);
+    load_rows<true>(smem_u32(sdo + s * BQ * ldv), ldv, dout,
+                    (long long)p.H * p.Dv, q0, BQ, p.Sq, p.Dv);
+    if (threadIdx.x < BQ) {
+      const int r = q0 + threadIdx.x;
+      stats[s * BQ + threadIdx.x] = r < p.Sq
+                                        ? make_float2(lse[r] * LOG2E, delta[r])
+                                        : make_float2(inf(), 0.f);
+    }
+  };
+  load_rows<true>(smem_u32(sk), ldk, k, (long long)p.K * p.D, k0, KV, p.Sk,
+                  p.D);
+  load_rows<true>(smem_u32(sv), ldv, v, (long long)p.K * p.Dv, k0, KV, p.Sk,
+                  p.Dv);
+  if (n_tiles) load_stage(0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const bool role_p = warp < pairs;  // Sᵀ, Pᵀ, dV; else dPᵀ, dSᵀ, dK
+  const int pair = warp % pairs;     // rows 16·pair .. of the kv tile
+  const int r0 = k0 + 16 * pair + g;  // this thread's kv rows r0, r0 + 8
+  const float scale_log2 = p.scale * LOG2E;
+  const int width = role_p ? p.Dv : p.D;  // of the accumulator: dV or dK
+  const float* ka = (role_p ? sk : sv) + 16 * pair * (role_p ? ldk : ldv);
+
+  float acc[N][4][4];
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; tile i - 1 and its Pᵀ are used up
+    if (i + 1 < n_tiles) load_stage(i + 1);
+    cp_async_commit();
+    const int s = i & 1, q0 = q_begin + i * BQ;
+    const float* qt = sq + s * BQ * ldk;
+    const float* dot = sdo + s * BQ * ldv;
+    const float4* st = reinterpret_cast<const float4*>(stats + s * BQ);
+    // x[j][e] is (kv row r0, q col q0 + 8j + 2 t4 + e), x[j][2 + e] (r0 + 8,
+    // the same col): Sᵀ, then Pᵀ (role P), or dPᵀ, then dSᵀ
+    float x[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+    // Sᵀ = K Qᵀ over D, or dPᵀ = V dOᵀ over Dv
+    const int ldx = role_p ? ldk : ldv;
+    product_rows<BQ / 8>(x, ka, ldx, role_p ? qt : dot, ldx,
+                         role_p ? p.D : p.Dv, g, t4);
+    const bool edge = k0 + KV > p.Sk || (p.causal && q0 < k0 + KV - 1) ||
+                      (p.window > 0 && q0 + BQ - 1 - k0 >= p.window);
+    if (role_p) {
+      // Pᵀ = exp2(Sᵀ·scale·log2 e - lse·log2 e), 0 where the forward masked
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float4 cs = st[4 * j + t4];  // (lse2, D) of two cols
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l2 = e ? cs.z : cs.x;
+          float p0 = ex2(fmaf(x[j][e], scale_log2, -l2));
+          float p1 = ex2(fmaf(x[j][2 + e], scale_log2, -l2));
+          if (edge) {
+            const int qc = q0 + 8 * j + 2 * t4 + e;
+            if (hidden(p, qc, r0)) p0 = 0.f;
+            if (hidden(p, qc, r0 + 8)) p1 = 0.f;
+          }
+          x[j][e] = p0;
+          x[j][2 + e] = p1;
+        }
+        // to the warp of the other role on the same rows: its lane holds
+        // the same elements
+        p_x[(BQ / 8 * pair + j) * 32 + lane] =
+            make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+      }
+    }
+    __syncthreads();  // Pᵀ handed over
+    if (!role_p) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float4 pt = p_x[(BQ / 8 * pair + j) * 32 + lane];
+        const float4 cs = st[4 * j + t4];  // (lse2, D) of two cols
+        x[j][0] = pt.x * (x[j][0] - cs.y) * p.scale;
+        x[j][1] = pt.y * (x[j][1] - cs.w) * p.scale;
+        x[j][2] = pt.z * (x[j][2] - cs.y) * p.scale;
+        x[j][3] = pt.w * (x[j][3] - cs.w) * p.scale;
+      }
+    }
+    // dV += Pᵀ dO, or dK += dSᵀ Q, over the tile's q rows
+    const float* rt = role_p ? dot : qt;
+    const int ldr = role_p ? ldv : ldk;
+    uint32_t ab[BQ / 8][4], as[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) frag_a_acc(x[j], ab[j], as[j]);
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      if (32 * c < width)
+        product_cols<BQ / 8>(acc[c], ab, as, rt + 32 * c, ldr, g, t4, 1.f,
+                             1.f);
+  }
+
+  // dV (role P) or dK rows r0, r0 + 8: (b, s, kv head) of the outputs, or
+  // (b, s, q head) of the f32 partials under GQA
+  const long long heads = gqa ? p.H : p.K;
+  float* out = role_p ? (gqa ? p.dv_ws : static_cast<float*>(p.dv))
+                      : (gqa ? p.dk_ws : static_cast<float*>(p.dk));
+  const int first = k0 + 16 * pair;
+  out += ((long long)b * p.Sk * heads + (long long)first * heads +
+          (gqa ? h : kvh)) * width;
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    store_group(acc[c], out, heads * width, g, p.Sk - first, 32 * c + 8 * t4,
+                width, 1.f, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// pass 3: dQ per q tile, 16 rows a warp (64 or 128), over kv tiles of BK
+// rows.  N: 32-column groups of max(D, Dv).
+// ---------------------------------------------------------------------------
+template <int N, int BK>
+__global__ void __launch_bounds__(256) dq_f32_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldk = tile_ld(p.D), ldv = tile_ld(p.Dv);
+  const int qrows = 16 * (blockDim.x / 32);
+  float* const sq = smem;                    // qrows x ldk
+  float* const sdo = sq + qrows * ldk;       // qrows x ldv
+  float* const sk = sdo + qrows * ldv;       // [2] BK x ldk
+  float* const sv = sk + 2 * BK * ldk;       // [2] BK x ldv
+
+  // the longest q tiles (most kv tiles under the causal mask) go first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * qrows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.K);
+  const float* q =
+      static_cast<const float*>(p.q) + ((long long)b * p.Sq * p.H + h) * p.D;
+  const float* dout = static_cast<const float*>(p.dout) +
+                      ((long long)b * p.Sq * p.H + h) * p.Dv;
+  const float* k =
+      static_cast<const float*>(p.k) + ((long long)b * p.Sk * p.K + kvh) * p.D;
+  const float* v = static_cast<const float*>(p.v) +
+                   ((long long)b * p.Sk * p.K + kvh) * p.Dv;
+  // kv tiles some row of this q tile can see
+  const int q_last = min(q0 + qrows, p.Sq) - 1;
+  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  k_begin -= k_begin % BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  const long long ks = (long long)p.K * p.D, vs = (long long)p.K * p.Dv;
+
+  load_rows<true>(smem_u32(sq), ldk, q, (long long)p.H * p.D, q0, qrows,
+                  p.Sq, p.D);
+  load_rows<true>(smem_u32(sdo), ldv, dout, (long long)p.H * p.Dv, q0,
+                  qrows, p.Sq, p.Dv);
+  if (n_tiles) {
+    load_rows<true>(smem_u32(sk), ldk, k, ks, k_begin, BK, p.Sk, p.D);
+    load_rows<true>(smem_u32(sv), ldv, v, vs, k_begin, BK, p.Sk, p.Dv);
+  }
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int qa = q0 + 16 * warp;           // this warp's first row
+  const int qb = min(qa + 15, p.Sq - 1);   // and its last live one
+  const bool live = qa < p.Sq;
+  const int r0 = qa + g;
+  const float scale_log2 = p.scale * LOG2E;
+  // the rows' stats; rows past Sq: lse = +inf makes their P, and dS, 0
+  float l2[2], dd[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    const long long at = ((long long)b * p.H + h) * p.Sq + r;
+    l2[half] = r < p.Sq ? p.lse[at] * LOG2E : inf();
+    dd[half] = r < p.Sq ? p.delta[at] : 0.f;
+  }
+  const float* qw = sq + 16 * warp * ldk;
+  const float* dow = sdo + 16 * warp * ldv;
+
+  float dq[N][4][4];
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[c][n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; every warp is done with tile i - 1
+    if (i + 1 < n_tiles) {
+      const int s = (i + 1) & 1, kn = k_begin + (i + 1) * BK;
+      load_rows<true>(smem_u32(sk + s * BK * ldk), ldk, k, ks, kn, BK, p.Sk,
+                      p.D);
+      load_rows<true>(smem_u32(sv + s * BK * ldv), ldv, v, vs, kn, BK, p.Sk,
+                      p.Dv);
+    }
+    cp_async_commit();
+    const int k0 = k_begin + i * BK;
+    // a tile that none of this warp's rows can see: no arithmetic
+    if (!live || (p.causal && k0 > qb) ||
+        (p.window > 0 && qa - (k0 + BK - 1) >= p.window))
+      continue;
+    const float* kt = sk + (i & 1) * BK * ldk;
+    const float* vt = sv + (i & 1) * BK * ldv;
+    float x[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = dp[j][e] = 0.f;
+    // S = Q Kᵀ over D; dP = dO Vᵀ over Dv
+    product_rows<BK / 8>(x, qw, ldk, kt, ldk, p.D, g, t4);
+    product_rows<BK / 8>(dp, dow, ldv, vt, ldv, p.Dv, g, t4);
+    // x[j][2 half + e] is (row r0 + 8 half, kv col k0 + 8j + 2 t4 + e): dS
+    // = P ⊙ (dP - D)·scale, in place
+    const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > qa) ||
+                      (p.window > 0 && qb - k0 >= p.window);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = 2 * half + e;
+          float pr = ex2(fmaf(x[j][n], scale_log2, -l2[half]));
+          if (edge && hidden(p, r0 + 8 * half, k0 + 8 * j + 2 * t4 + e))
+            pr = 0.f;
+          x[j][n] = pr * (dp[j][n] - dd[half]) * p.scale;
+        }
+      }
+    }
+    // dQ += dS K over the tile's kv rows
+    uint32_t ab[BK / 8][4], as[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) frag_a_acc(x[j], ab[j], as[j]);
+#pragma unroll
+    for (int c = 0; c < N; ++c)
+      if (32 * c < p.D)
+        product_cols<BK / 8>(dq[c], ab, as, kt + 32 * c, ldk, g, t4, 1.f,
+                             1.f);
+  }
+  if (!live) return;
+  const long long stride = (long long)p.H * p.D;
+  float* out = static_cast<float*>(p.dq) +
+               ((long long)b * p.Sq + qa) * stride + (long long)h * p.D;
+#pragma unroll
+  for (int c = 0; c < N; ++c)
+    store_group(dq[c], out, stride, g, p.Sq - qa, 32 * c + 8 * t4, p.D, 1.f,
+                1.f);
+}
+
+// four warps a dK/dV block (32 kv rows), two blocks an SM; eight (64
+// rows) where two blocks of four do not fit beside each other but one of
+// eight does (MLA)
+int kv_warps(int D, int Dv) {
+  return !two_fit(kv_smem(4, D, Dv)) &&
+                 kv_smem(8, D, Dv) <= size_t(BLOCK_SMEM)
+             ? 8
+             : 4;
+}
+
+// a dQ block's warps (16 q rows each) and kv tile rows: four warps and 64
+// rows, else 32, where two such blocks share an SM; else the first of (8,
+// 32), (8, 24), (8, 16), (4, 32), (4, 16) whose tiles fit a block.  On the
+// card 64 rows took minicpm-2b's backward from 2.124 ms to 2.018 and (8,
+// 24) MLA's from 16.68 to 15.82, against (4, 32) and (8, 16)
+// (launch/probe_flash_f32.py; H100 at 700 W).
+void dq_shape(int D, int Dv, int* warps, int* bk) {
+  const int two[2] = {64, 32};
+  const int one[5][2] = {{8, 32}, {8, 24}, {8, 16}, {4, 32}, {4, 16}};
+  *warps = 4;
+  for (int k : two) {
+    *bk = k;
+    if (two_fit(dq_smem(4, D, Dv, k))) return;
+  }
+  for (const auto& wk : one)
+    if (dq_smem(wk[0], D, Dv, wk[1]) <= size_t(BLOCK_SMEM)) {
+      *warps = wk[0];
+      *bk = wk[1];
+      return;
+    }
+  *warps = *bk = 0;
+}
+
+template <int N, int BK>
+int launch(const Params& p, int kvw, int dqw, cudaStream_t stream) {
+  const size_t kv = kv_smem(kvw, p.D, p.Dv),
+               dqs = dq_smem(dqw, p.D, p.Dv, BK);
+  cudaError_t e = cudaFuncSetAttribute(
+      dkdv_f32_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(kv));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq_f32_kernel<N, BK>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(dqs));
+  if (e != cudaSuccess) return int(e);
+
+  const long long rows = (long long)p.B * p.Sq * p.H;
+  delta_kernel<float><<<unsigned((rows + THREADS / 32 - 1) / (THREADS / 32)),
+                        THREADS, 0, stream>>>(p);
+  const int kv_rows = 8 * kvw;
+  dim3 grid_kv((p.Sk + kv_rows - 1) / kv_rows, p.dk_ws ? p.H : p.K, p.B);
+  dkdv_f32_kernel<N><<<grid_kv, 32 * kvw, kv, stream>>>(p);
+  if (p.dk_ws) {
+    const int G = p.H / p.K;
+    const long long nk = (long long)p.B * p.Sk * p.K * p.D;
+    const long long nv = (long long)p.B * p.Sk * p.K * p.Dv;
+    reduce_kernel<float>
+        <<<unsigned((nk + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+            p.dk_ws, static_cast<float*>(p.dk), nk, p.K, G, p.D);
+    reduce_kernel<float>
+        <<<unsigned((nv + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+            p.dv_ws, static_cast<float*>(p.dv), nv, p.K, G, p.Dv);
+  }
+  const int q_rows = 16 * dqw;
+  dim3 grid_q((p.Sq + q_rows - 1) / q_rows, p.H, p.B);
+  dq_f32_kernel<N, BK><<<grid_q, 32 * dqw, dqs, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+// kv tiles of 64 rows share an SM in pairs only where max(D, Dv) <= 96
+// (1-3 groups), of 24 rows are taken only past 128 (6 or 8 groups)
+template <int N>
+int run_n(const Params& p, cudaStream_t stream) {
+  int dqw, bk;
+  dq_shape(p.D, p.Dv, &dqw, &bk);
+  const int kvw = kv_warps(p.D, p.Dv);
+  if (!dqw || kv_smem(kvw, p.D, p.Dv) > size_t(BLOCK_SMEM)) return -1;
+  if (bk == 32) return launch<N, 32>(p, kvw, dqw, stream);
+  if (bk == 16) return launch<N, 16>(p, kvw, dqw, stream);
+  if constexpr (N <= 3)
+    if (bk == 64) return launch<N, 64>(p, kvw, dqw, stream);
+  if constexpr (N >= 6)
+    if (bk == 24) return launch<N, 24>(p, kvw, dqw, stream);
+  return -1;
+}
+
+int run(const Params& p, cudaStream_t stream) {
+  // the wrapper passes contiguous tensors; rows start on 16 bytes where
+  // every base does (D and Dv are multiples of 8)
+  const void* const bases[] = {p.q, p.k, p.v, p.o, p.dout, p.dq, p.dk, p.dv};
+  for (const void* t : bases)
+    if (reinterpret_cast<uintptr_t>(t) % 16) return -1;
+  switch (groups32(p.D > p.Dv ? p.D : p.Dv)) {
+    case 1: return run_n<1>(p, stream);
+    case 2: return run_n<2>(p, stream);
+    case 3: return run_n<3>(p, stream);
+    case 4: return run_n<4>(p, stream);
+    case 6: return run_n<6>(p, stream);
+    default: return run_n<8>(p, stream);
+  }
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv).  delta:
@@ -1155,7 +1302,7 @@ extern "C" int flash_attention_bwd(
   p.window = window;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(p, s);
+  if (dtype == 0) return tf32::run(p, s);
   if (dtype == 1) return tc::run(p, s);
   return -1;
 }

@@ -47,9 +47,21 @@ _BWD_ARGTYPES = [_P] * 12 + [_I] * 10 + [ctypes.c_float, _P]
 _TC_BOXES = {(1, 1), (2, 2), (4, 4), (3, 2)}
 
 
-#: the backward's tensor-core kernels: rows of a warpgroup and of a
-#: streamed tile, and the dynamic shared memory a block may have
+#: the backward's bf16 kernels: rows of a warpgroup and of a streamed
+#: tile, and the dynamic shared memory a block may have
 _BWD_TILE, _SMEM_MAX = 64, 227 * 1024
+
+
+def _two_fit(smem: int) -> bool:
+    """Whether two blocks of ``smem`` bytes share an SM (228 KB, 1 KB a
+    block reserved)."""
+    return 2 * (smem + 1024) <= 228 * 1024
+
+
+def _tile_ld(w: int) -> int:
+    """Floats a row of an f32 kernel's shared tile takes (``tile_ld`` in
+    ``csrc/hopper.cuh``): w rounded up to 32, plus 4."""
+    return -(-w // 32) * 32 + 4
 
 
 class BwdPass(NamedTuple):
@@ -63,7 +75,7 @@ class BwdPass(NamedTuple):
 
 class BwdShape(NamedTuple):
     """The launch shape of the flash backward for one (D, Dv, dtype)."""
-    route: str                # "tc": bf16 on wgmma; "simt": f32 FMAs
+    route: str                # "tc": bf16 on wgmma; "tf32x3": f32 on mma.sync
     boxes: tuple[int, int]    # 64-column boxes of D and Dv ("tc")
     dkdv: BwdPass
     dq: BwdPass
@@ -71,22 +83,42 @@ class BwdShape(NamedTuple):
 
 def bwd_launch_shape(D: int, Dv: int, dtype: torch.dtype) -> BwdShape:
     """The backward's launch shape, as ``csrc/flash_attention_bwd.cu``
-    computes it (``tc::KvLayout``, ``tc::QLayout``; ``run`` for f32).
+    computes it (``tc::KvLayout``, ``tc::QLayout``; ``tf32::kv_smem``,
+    ``tf32::dq_smem`` and ``tf32::run_n`` for f32).
 
     bf16: the forward's box pairs only (``_TC_BOXES``); any other raises.
     dK/dV: one 64-row kv tile per block of a producer and two consumer
     warpgroups, Q, dO and row-stat stages of 64 q rows, as many as fit
     (at most 4) beside K, V and the 16 KB Pᵀ hand-over.  dQ: 64 q rows
     per consumer warpgroup, two where their Q and dO tiles and two K, V
-    stages fit, else one.  f32: the CUDA-core tiles (BQ, BK) by the widest
-    head dim, 256 threads, one tile at a time."""
+    stages fit, else one.
+
+    f32 (route "tf32x3", any D and Dv that are multiples of 8 up to 256):
+    no producer, rows ``_tile_ld`` floats apart, two stages.  dK/dV: 8 kv
+    rows a warp, four warps, or eight where two blocks of four do not
+    share an SM but one of eight fits; stages of 32 q rows (Q, dO and the
+    rows' two stats) and the Pᵀ hand-over (kv rows x 32 floats).  dQ: 16
+    q rows a warp and stages of kv rows (K, V): four warps and 64 rows,
+    else 32, where two such blocks share an SM, else the first of (8, 32),
+    (8, 24), (8, 16), (4, 32), (4, 16) that fits."""
     if dtype == torch.float32:
-        w = max(D, Dv)
-        bq, bk = (64, 64) if w <= 64 else (32, 64) if w <= 128 else (64, 32)
-        smem = 4 * (bk * (D + 1) + bk * (Dv + 1) + bq * (D + 1)
-                    + bq * (Dv + 1) + 2 * bq * (bk + 1) + 2 * bq)
-        return BwdShape("simt", (0, 0), BwdPass(bk, bq, 1, smem, 2),
-                        BwdPass(bq, bk, 1, smem, 2))
+        w = _tile_ld(D) + _tile_ld(Dv)
+
+        def kv_smem(warps):
+            return 4 * (8 * warps * w + 2 * (32 * w + 64) + 8 * warps * 32)
+
+        def dq_smem(warps, rows):
+            return 4 * (16 * warps + 2 * rows) * w
+
+        kvw = 8 if (not _two_fit(kv_smem(4))
+                    and kv_smem(8) <= _SMEM_MAX) else 4
+        dqw, bk = next(iter(
+            [(4, k) for k in (64, 32) if _two_fit(dq_smem(4, k))]
+            + [(wr, k) for wr, k in ((8, 32), (8, 24), (8, 16), (4, 32),
+                                     (4, 16)) if dq_smem(wr, k) <= _SMEM_MAX]))
+        return BwdShape("tf32x3", (0, 0),
+                        BwdPass(8 * kvw, 32, 2, kv_smem(kvw), kvw // 4),
+                        BwdPass(16 * dqw, bk, 2, dq_smem(dqw, bk), dqw // 4))
     boxes = (-(-D // 64), -(-Dv // 64))
     if dtype != torch.bfloat16 or boxes not in _TC_BOXES:
         raise ValueError(f"flash_attention_bwd: the bf16 kernels are not "
@@ -251,8 +283,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`flash_attention_bwd`.  Otherwise, on a CPU tensor:
     :func:`flash_attention_plain`; on a CUDA tensor: launches the kernel
     on the current stream (the executor's compute stream) and counts the
-    launch in ``flash_attention.launches``, raising on what the kernel
-    does not take.  A traced call goes through the custom op: a fake
+    launch in ``flash_attention.launches`` (an f32 launch also in
+    ``flash_attention.f32_launches``), raising on what the kernel does not
+    take.  A traced call goes through the custom op: a fake
     tensor gets the outputs' shapes; DTensors on a mesh of more than one
     rank run per rank under the op's sharding rule.
     ``with_lse`` also returns the rows' f32 log-sum-exp (B, H, Sq)
@@ -375,6 +408,7 @@ def _launch(q, k, v, window: int, q_offset: int, q_offset_dev, causal: bool,
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
     flash_attention.launches += 1
+    flash_attention.f32_launches += int(q.dtype == torch.float32)
     return out, lse
 
 
@@ -412,10 +446,12 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
 
     On a CPU tensor: :func:`flash_attention_bwd_plain`.  On a CUDA
     tensor: launches ``csrc/flash_attention_bwd.cu`` (its three passes,
-    and the GQA reduction, on the current stream; bf16 on the tensor
-    cores, f32 on the CUDA cores, see :func:`bwd_launch_shape`) and
-    counts the call in ``flash_attention_bwd.launches``, raising on what
-    the kernel does not take.  A traced call goes through the custom op:
+    and the GQA reduction, on the current stream; both dtypes on the
+    tensor cores, f32 as three TF32 products per product, see
+    :func:`bwd_launch_shape`) and counts the call in
+    ``flash_attention_bwd.launches`` (an f32 call also in
+    ``flash_attention_bwd.f32_launches``), raising on what the kernel
+    does not take.  A traced call goes through the custom op:
     a fake tensor gets the outputs' shapes, the kernel's scratch (D_i,
     the GQA partials) among them; DTensors on a mesh of more than one
     rank run per rank under the op's sharding rule.
@@ -464,6 +500,9 @@ def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                  (q, k, v, out, dout))):
         raise ValueError("flash_attention_bwd: bf16 tensors are read in "
                          "16-byte pieces: a 16-byte aligned base")
+    if q.dtype == torch.float32:        # read 16 bytes a copy, as bf16 is
+        q, k, v, out, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                              for t in (q, k, v, out, dout))
     dev = q.device
     dq, dk, dv, delta, dk_ws, dv_ws = _bwd_fake(q, k, v, out, dout, lse,
                                                 window, causal, scale)
@@ -479,6 +518,7 @@ def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
                            f"error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.f32_launches += int(q.dtype == torch.float32)
     return dq, dk, dv, delta, dk_ws, dv_ws
 
 
@@ -559,6 +599,7 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-#: launches of the CUDA kernels (never of the plain versions)
-flash_attention.launches = 0
-flash_attention_bwd.launches = 0
+#: launches of the CUDA kernels (never of the plain versions), and of
+#: their f32 route alone
+flash_attention.launches = flash_attention.f32_launches = 0
+flash_attention_bwd.launches = flash_attention_bwd.f32_launches = 0

@@ -180,8 +180,10 @@ _VARIANTS = {
 }
 
 
-def _build_copies(texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """Compile each text as its own library (one nvcc each, together)."""
+def _build_copies(texts: dict[str, str], symbol: str = "flash_attention_bwd",
+                  argtypes=None) -> dict[str, ctypes.CDLL]:
+    """Compile each text as its own library (one nvcc each, together),
+    with ``symbol`` bound to ``argtypes`` (the backward's by default)."""
     _OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, text in texts.items():
@@ -196,8 +198,9 @@ def _build_copies(texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(str((_OUT / f"lib{name}.so").resolve()))
-        libs[name].flash_attention_bwd.argtypes = ops._BWD_ARGTYPES
-        libs[name].flash_attention_bwd.restype = ctypes.c_int
+        fn = getattr(libs[name], symbol)
+        fn.argtypes = ops._BWD_ARGTYPES if argtypes is None else argtypes
+        fn.restype = ctypes.c_int
     return libs
 
 

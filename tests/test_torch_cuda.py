@@ -322,6 +322,61 @@ def test_flash_kernel_repeats_bit_identically(cuda):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("Dv", [40, 96])
+def test_flash_f32_kernel_reads_rows_not_on_16_bytes(cuda, Dv):
+    """The f32 kernel copies 16 bytes at a time where every row of q, k
+    and v starts on 16 bytes, else 4 at a time (the same kernel's other
+    instance): a head stride of 2 mod 4 floats, and a base one float past
+    an aligned one, give the plain version's result; both count as f32
+    route launches."""
+    rng = np.random.default_rng(30)
+    B, S, H, K, D = 2, 140, 6, 2, 40
+    q = _randn(rng, (B, S, H, D + 2), torch.float32, cuda)[..., :D]
+    assert q.stride(2) % 4 == 2
+    k = _randn(rng, (B * S * K * D + 1,), torch.float32, cuda)[1:].view(
+        B, S, K, D)
+    assert k.data_ptr() % 16 == 4
+    v = _randn(rng, (B, S, K, Dv), torch.float32, cuda)
+    before = (flash_attention.launches, flash_attention.f32_launches)
+    for win in (None, 50):
+        _close(flash_attention(q, k, v, window=win),
+               flash_attention_plain(q, k, v, window=win), torch.float32)
+    assert (flash_attention.launches, flash_attention.f32_launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def test_f32_route_rounds_to_tf32_as_cvt_rna_does(cuda):
+    """The f32 flash kernels round to TF32 with two integer instructions
+    (csrc/hopper.cuh ``to_tf32``): over all 2^32 f32 bit patterns, every
+    finite one rounds as ``cvt.rna.tf32.f32`` rounds it."""
+    import ctypes
+
+    from repro_torch.kernels._build import function
+    fn = function("flash_attention", "flash_attention_tf32_mismatches",
+                  [ctypes.c_void_p, ctypes.c_void_p])
+    n = torch.zeros(1, dtype=torch.int64, device=cuda)
+    assert fn(n.data_ptr(), torch.cuda.current_stream(cuda).cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert int(n) == 0
+
+
+def test_flash_f32_backward_repeats_bit_identically(cuda):
+    """The f32 backward (three passes, the GQA partials summed in head
+    order, no atomics) gives the same bits every time."""
+    rng = np.random.default_rng(31)
+    B, H, K, S, D = 2, 12, 3, 300, 64
+    q = _randn(rng, (B, S, H, D), torch.float32, cuda)
+    k, v = (_randn(rng, (B, S, K, D), torch.float32, cuda) for _ in "kv")
+    dout = _randn(rng, (B, S, H, D), torch.float32, cuda)
+    out, lse = flash_attention(q, k, v, window=100, with_lse=True)
+    before = flash_attention_bwd.f32_launches
+    first = flash_attention_bwd(q, k, v, out, dout, lse, window=100)
+    for _ in range(3):
+        again = flash_attention_bwd(q, k, v, out, dout, lse, window=100)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert flash_attention_bwd.f32_launches == before + 4
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,lens", [
     # 2 splits of the rows: every valid_len from 0 to past S

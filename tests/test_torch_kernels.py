@@ -490,6 +490,268 @@ def test_flash_bwd_tensor_core_design_holds_the_card_tolerance(B, H, K, S, D,
                    for e, r in zip(once, ref))
 
 
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the nearest
+    value with 10 mantissa bits, ties away from zero (half a unit of the 13
+    dropped bits added to the f32 bits, which are then masked off)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(spec, a, b, split=True):
+    """``einsum(spec, a, b)`` as the f32 kernels take it on the tensor
+    cores: each operand split into TF32 big = tf32(x) and small = tf32(x -
+    big), and big·big + big·small + small·big summed in f32; or, without
+    ``split``, one TF32 rounding of each operand."""
+    if not split:
+        return torch.einsum(spec, _tf32(a), _tf32(b))
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return (torch.einsum(spec, a_s, bb) + torch.einsum(spec, ab, b_s)
+            + torch.einsum(spec, ab, bb))
+
+
+def test_tf32_rounding_keeps_ten_bits_to_nearest_ties_away():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e38,
+                      1.0 + 2.0 ** -10])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                         -(1.0 + 2.0 ** -10), 1.0, float(_tf32(
+                             torch.tensor([3.0e38]))[0]), 1.0 + 2.0 ** -10])
+    got = _tf32(x)
+    assert torch.equal(got, want)
+    assert bool((got.view(torch.int32) & 0x1FFF == 0).all())
+    r = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        10000).astype(np.float32))
+    big = _tf32(r)
+    assert float(((r - big).abs() / r.abs()).max()) <= 2.0 ** -11
+    small = _tf32(r - big)
+    assert float(((r - big - small).abs() / r.abs()).max()) <= 2.0 ** -21
+
+
+def _flash_f32_emulation(q, k, v, *, window=None, split=True, kv_tile=32):
+    """The f32 flash kernel's arithmetic: Q·Kᵀ and P·V as three TF32
+    products each (``_mm3``; or one rounding each), logits in log2 units
+    with the additive -1e30 masks, an online softmax over kv tiles of 32
+    rows in the kernel's order (exp2), normalised last.  q: (B, Sq, H, D),
+    k: (B, Sk, K, D), v: (B, Sk, K, Dv), f32; returns (B, Sq, H, Dv)."""
+    B, Sq, H, D = q.shape
+    Sk, K, Dv = v.shape[1], v.shape[2], v.shape[3]
+    G = H // K
+    c = (1.0 / np.sqrt(D)) * np.log2(np.e)
+    qf = q.reshape(B, Sq, K, G, D)
+    neg = torch.tensor(-1e30)
+    m = torch.full((B, K, G, Sq), -1e30)
+    l = torch.zeros((B, K, G, Sq))
+    acc = torch.zeros((B, K, G, Sq, Dv))
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, kv_tile):
+        kt, vt = k[:, k0:k0 + kv_tile], v[:, k0:k0 + kv_tile]
+        k_pos = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        x = _mm3("bqkgd,bskd->bkgqs", qf, kt, split) * c
+        x = x + neg * (q_pos < k_pos)
+        if window is not None:
+            x = x + neg * (q_pos - k_pos >= window)
+        mn = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(x - mn[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _mm3("bkgqs,bskd->bkgqd", p, vt, split)
+        m = mn
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv)
+
+
+def _full_f32(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+#: the f32 routes' families: phi3's D 96 with a window under GQA, MLA's
+#: 192/128, recurrentgemma's 256 with a window, minicpm's 64
+F32_FAMILIES = [
+    (1, 4, 2, 200, 96, 96, 70),
+    (1, 2, 2, 130, 192, 128, None),
+    (1, 2, 1, 260, 256, 256, 64),
+    (1, 4, 4, 150, 64, 64, None),
+]
+
+
+@pytest.mark.parametrize("B,H,K,S,D,Dv,win", F32_FAMILIES)
+def test_flash_f32_tensor_core_design_holds_the_card_tolerance(B, H, K, S, D,
+                                                               Dv, win):
+    """Three TF32 products per product keep the f32 forward within the
+    card check (2e-5 + 2e-5·|ref|) of the plain version on full f32
+    inputs; one TF32 rounding of each operand does not."""
+    rng = np.random.default_rng(24)
+    q, k, v = (_full_f32(rng, B, S, H, D), _full_f32(rng, B, S, K, D),
+               _full_f32(rng, B, S, K, Dv))
+    ref = flash_attention_plain(q, k, v, window=win)
+    bound = 2e-5 + 2e-5 * ref.abs()
+    emu = _flash_f32_emulation(q, k, v, window=win)
+    assert bool(((emu - ref).abs() <= bound).all())
+    once = _flash_f32_emulation(q, k, v, window=win, split=False)
+    assert not bool(((once - ref).abs() <= bound).all())
+
+
+def _flash_bwd_f32_emulation(q, k, v, out, dout, lse, *, window=None,
+                             split=True):
+    """The f32 backward kernels' arithmetic: S, dP and the products with
+    P and dS (dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K) as three TF32 products
+    each (``_mm3``; or one rounding each), P = exp2(S·scale·log2 e −
+    lse·log2 e) and 0 where masked, D = rowsum(dO ⊙ O) and dS = P ⊙ (dP −
+    D)·scale in f32.  Returns dq, dk, dv."""
+    B, Sq, H, D = q.shape
+    Sk, K, Dv = v.shape[1], v.shape[2], v.shape[3]
+    G = H // K
+    scale = 1.0 / np.sqrt(D)
+    log2e = np.log2(np.e)
+    qf = q.reshape(B, Sq, K, G, D)
+    do = dout.reshape(B, Sq, K, G, Dv)
+    delta = (do * out.reshape(B, Sq, K, G, Dv)).sum(-1)
+    q_pos = torch.arange(Sq)[:, None]
+    k_pos = torch.arange(Sk)[None, :]
+    hidden = q_pos < k_pos
+    if window is not None:
+        hidden = hidden | (q_pos - k_pos >= window)
+    s = _mm3("bqkgd,bskd->bkgqs", qf, k, split)
+    p = torch.exp2(s * (scale * log2e)
+                   - (lse * log2e).reshape(B, K, G, Sq, 1))
+    p = torch.where(hidden, torch.zeros(()), p)
+    dp = _mm3("bqkgd,bskd->bkgqs", do, v, split)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    dv = _mm3("bkgqs,bqkgd->bskd", p, do, split)
+    dk = _mm3("bkgqs,bqkgd->bskd", ds, qf, split)
+    dq = _mm3("bkgqs,bskd->bqkgd", ds, k, split)
+    return dq.reshape(B, Sq, H, D), dk, dv
+
+
+@pytest.mark.parametrize("B,H,K,S,D,Dv,win", F32_FAMILIES)
+def test_flash_bwd_f32_tensor_core_design_holds_the_card_tolerance(
+        B, H, K, S, D, Dv, win):
+    """Three TF32 products per product keep the f32 gradients within the
+    card check (2e-5 + 2e-5·|ref|) of the plain version on full f32
+    inputs; one TF32 rounding of each operand does not."""
+    rng = np.random.default_rng(25)
+    q, k, v = (_full_f32(rng, B, S, H, D), _full_f32(rng, B, S, K, D),
+               _full_f32(rng, B, S, K, Dv))
+    dout = _full_f32(rng, B, S, H, Dv)
+    out, lse = flash_attention_plain(q, k, v, window=win, with_lse=True)
+    ref = flash_attention_bwd_plain(q, k, v, out, dout, lse, window=win)
+    emu = _flash_bwd_f32_emulation(q, k, v, out, dout, lse, window=win)
+    once = _flash_bwd_f32_emulation(q, k, v, out, dout, lse, window=win,
+                                    split=False)
+    for e, r in zip(emu, ref):
+        assert bool(((e - r).abs() <= 2e-5 + 2e-5 * r.abs()).all())
+    assert not all(bool(((e - r).abs() <= 2e-5 + 2e-5 * r.abs()).all())
+                   for e, r in zip(once, ref))
+
+
+def _mma_m16n8k8(d, a, b):
+    """One warp's ``mma.sync.m16n8k8`` on per-lane fragments (32 x 4, 32 x
+    4, 32 x 2; lane = 4g + t): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3
+    (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); d0, d1 (g, 2t, 2t +
+    1), d2, d3 (g + 8, the same columns)."""
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    A, Bm, C = np.zeros((16, 8)), np.zeros((8, 8)), np.zeros((16, 8))
+    for i, (r, c) in enumerate([(g, t), (g + 8, t), (g, t + 4),
+                                (g + 8, t + 4)]):
+        A[r, c] = a[:, i]
+    Bm[t, g], Bm[t + 4, g] = b[:, 0], b[:, 1]
+    for i, (r, c) in enumerate([(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t),
+                                (g + 8, 2 * t + 1)]):
+        C[r, c] = d[:, i]
+    C = C + A @ Bm
+    return np.stack([C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t],
+                     C[g + 8, 2 * t + 1]], axis=1)
+
+
+def test_f32_kernel_fragments_give_the_products():
+    """The f32 kernels' fragment reads (``csrc/hopper.cuh``) on one warp:
+    ``frag_a`` and ``frag_b_rows`` give S = Q Kᵀ in C layout;
+    ``frag_a_acc`` (the C tile's columns 2t, 2t + 1 as k = t, t + 4) with
+    ``frag_b_cols`` (rows 2t, 2t + 1, 16 bytes of a 32-column group) gives
+    O = S V, which ``store_group`` writes to the right columns; a row
+    stride of 4 mod 32 floats makes every read conflict-free."""
+    rng = np.random.default_rng(26)
+    D, BK, Dv = 24, 32, 64
+    Q, Kt, V = (rng.standard_normal(s) for s in ((16, D), (BK, D),
+                                                  (BK, Dv)))
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    sc = np.zeros((BK // 8, 32, 4))
+    for kk in range(0, D, 8):
+        a = np.stack([Q[g, kk + t], Q[g + 8, kk + t], Q[g, kk + t + 4],
+                      Q[g + 8, kk + t + 4]], axis=1)
+        for j in range(BK // 8):
+            b = np.stack([Kt[8 * j + g, kk + t], Kt[8 * j + g, kk + t + 4]],
+                         axis=1)
+            sc[j] = _mma_m16n8k8(sc[j], a, b)
+    S = Q @ Kt.T
+    for j in range(BK // 8):
+        for e in range(2):
+            np.testing.assert_allclose(sc[j][:, e], S[g, 8 * j + 2 * t + e])
+            np.testing.assert_allclose(sc[j][:, 2 + e],
+                                       S[g + 8, 8 * j + 2 * t + e])
+    o = np.zeros((Dv // 32, 4, 32, 4))
+    for j in range(BK // 8):
+        a = sc[j][:, [0, 2, 1, 3]]                       # frag_a_acc
+        for c in range(Dv // 32):
+            for i in range(4):                           # frag_b_cols
+                b = np.stack([V[8 * j + 2 * t, 32 * c + 4 * g + i],
+                              V[8 * j + 2 * t + 1, 32 * c + 4 * g + i]],
+                             axis=1)
+                o[c][i] = _mma_m16n8k8(o[c][i], a, b)
+    out = np.full((16, Dv), np.nan)
+    for c in range(Dv // 32):                            # store_group
+        for half in range(2):
+            for i in range(4):
+                out[g + 8 * half, 32 * c + 8 * t + i] = o[c][i][:, 2 * half]
+                out[g + 8 * half, 32 * c + 8 * t + 4 + i] = \
+                    o[c][i][:, 2 * half + 1]
+    np.testing.assert_allclose(out, S @ V, rtol=1e-12, atol=1e-12)
+    ld = 32 * 3 + 4                                      # tile_ld(96)
+    assert len(set((g * ld + t) % 32)) == 32              # scalar reads
+    for quarter in range(4):                             # 16-byte reads
+        lanes = np.arange(8 * quarter, 8 * quarter + 8)
+        slots = (2 * t[lanes] * ld + 4 * g[lanes]) % 32 // 4
+        assert len(set(slots)) == 8
+
+
+def test_graph_launches_replay_the_f32_routes_apart():
+    """A graph that holds f32 flash launches adds them to the f32 routes'
+    counters at each replay, beside the wrappers' own; ``per_replay``
+    keeps the watched wrappers only."""
+    from repro_torch import kernels
+
+    class FakeGraph:
+        def replay(self):
+            pass
+
+    names = ("flash_attention", "flash_attention_bwd")
+    start = kernels.launch_counts(names + kernels.F32_ROUTES)
+    counts = kernels.GraphLaunches(names)
+    with counts.capture():
+        kernels.flash_attention.launches += 3
+        kernels.flash_attention.f32_launches += 2
+        kernels.flash_attention_bwd.launches += 1
+        kernels.flash_attention_bwd.f32_launches += 1
+    assert kernels.launch_counts(names + kernels.F32_ROUTES) == start
+    assert counts.per_replay == {"flash_attention": 3,
+                                 "flash_attention_bwd": 1}
+    assert counts.f32_per_replay == {"flash_attention_f32": 2,
+                                     "flash_attention_bwd_f32": 1}
+    counts.replay(FakeGraph())
+    counts.replay(FakeGraph())
+    got = kernels.launch_counts(names + kernels.F32_ROUTES)
+    assert got == {k: start[k] + 2 * n for k, n in
+                   (counts.per_replay | counts.f32_per_replay).items()}
+    assert kernels.GraphLaunches(["decode_attention"]).routes == ()
+    kernels.flash_attention.launches = start["flash_attention"]
+    kernels.flash_attention_bwd.launches = start["flash_attention_bwd"]
+    kernels.flash_attention.f32_launches = start["flash_attention_f32"]
+    kernels.flash_attention_bwd.f32_launches = start[
+        "flash_attention_bwd_f32"]
+
+
 def _decode_split_emulation(q, k, v, valid_len, splits):
     """The decode kernel's split-and-merge: each row's min(valid_len, S)
     rows (S rows, logits 0, for valid_len 0) cut into `splits` even
@@ -655,18 +917,61 @@ def test_bwd_launch_shape_refuses_pairs_not_built(D, Dv):
         bwd_launch_shape(D, Dv, torch.bfloat16)
     with pytest.raises(ValueError, match="not built"):
         bwd_launch_shape(64, 64, torch.float16)
-    assert bwd_launch_shape(D, Dv, torch.float32).route == "simt"
+    assert bwd_launch_shape(D, Dv, torch.float32).route == "tf32x3"
 
 
-@pytest.mark.parametrize("D,Dv,tiles", [(64, 64, (64, 64)),
-                                        (128, 96, (32, 64)),
-                                        (256, 256, (64, 32))])
-def test_bwd_launch_shape_of_the_f32_kernels(D, Dv, tiles):
+@pytest.mark.parametrize("D,Dv", [
+    (16, 16), (64, 64), (96, 96), (128, 128),   # the ported head dims
+    (256, 256), (192, 128),
+    (8, 8), (24, 16), (40, 200), (256, 8),      # any multiple of 8 to 256
+    (200, 256), (256, 192), (192, 192),
+])
+def test_bwd_launch_shape_of_the_f32_route(D, Dv):
+    """Every (D, Dv) the f32 route takes fits a block's 227 KB in both
+    passes, with two stages: dK/dV on 8 kv rows a warp and 32-row q
+    tiles, four warps where two such blocks share an SM, else the eight
+    that fit; dQ on 16 q rows a warp, four warps and kv tiles of 64 rows,
+    else 32, where two such blocks share an SM, else the most warps and
+    rows that fit."""
     sh = bwd_launch_shape(D, Dv, torch.float32)
-    bq, bk = tiles
-    assert (sh.dq.rows, sh.dq.tile) == tiles
-    assert (sh.dkdv.rows, sh.dkdv.tile) == (bk, bq)
-    assert sh.dkdv.smem == sh.dq.smem <= 227 * 1024
+    assert sh.route == "tf32x3"
+    ld = [-(-w // 32) * 32 + 4 for w in (D, Dv)]
+    assert all(x % 32 == 4 and x >= w for x, w in zip(ld, (D, Dv)))
+    w = sum(ld)
+    kv, dq = sh.dkdv, sh.dq
+
+    def two_fit(smem):     # two blocks an SM of 228 KB, 1 KB a block
+        return 2 * (smem + 1024) <= 228 * 1024
+
+    def kv_smem(rows):     # K, V; a stage: Q, dO, two stats a row; Pᵀ
+        return 4 * (rows * w + 2 * (32 * w + 64) + rows * 32)
+
+    def dq_smem(rows, tile):  # Q, dO; a stage: K, V
+        return 4 * (rows + 2 * tile) * w
+
+    assert (kv.tile, kv.stages) == (32, 2)
+    assert kv.warpgroups in (1, 2) and kv.rows == 32 * kv.warpgroups
+    assert kv.smem == kv_smem(kv.rows) <= 227 * 1024
+    assert (kv.rows == 64) == (not two_fit(kv_smem(32))
+                               and kv_smem(64) <= 227 * 1024)
+    assert dq.stages == 2 and dq.tile in (64, 32, 24, 16)
+    assert dq.warpgroups in (1, 2) and dq.rows == 64 * dq.warpgroups
+    assert dq.smem == dq_smem(dq.rows, dq.tile) <= 227 * 1024
+    shared = [(64, 64), (64, 32)]               # two blocks an SM
+    order = [(128, 32), (128, 24), (128, 16), (64, 32), (64, 16)]
+    if any(two_fit(dq_smem(*s)) for s in shared):
+        assert (dq.rows, dq.tile) == next(s for s in shared
+                                          if two_fit(dq_smem(*s)))
+    else:
+        first = order.index((dq.rows, dq.tile))
+        assert all(dq_smem(*s) > 227 * 1024 for s in order[:first])
+    # 64-row tiles are built for max(D, Dv) up to 96, 24-row past 128
+    assert dq.tile != 64 or max(D, Dv) <= 96
+    assert dq.tile != 24 or max(D, Dv) > 128
+    if (D, Dv) == (192, 128):                   # MLA: both passes at 8 warps
+        assert (kv.rows, dq.rows, dq.tile) == (64, 128, 24)
+    if (D, Dv) == (64, 64):                     # minicpm: two blocks of 4
+        assert (kv.rows, dq.rows, dq.tile) == (32, 64, 64)
 
 
 @pytest.mark.parametrize("max_blocks", [8, 16])
