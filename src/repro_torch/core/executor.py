@@ -285,8 +285,11 @@ class Executor:
         is reported with wall-clock timestamps, bin label, and bytes
         moved, building the JSON trace ``CostModel.fit`` calibrates from.
     obs: optional ``repro_torch.obs.SpanRecorder`` flight recorder.  When set,
-        every executed node opens a span with bin/lane/node/stage
-        attribution, and the runtime's notable transitions — steals,
+        every executed node opens a span named after it with bin/lane/
+        node/stage/worker/iteration attribution (the parent of the spans
+        its task records on that thread), each iteration's predicate of
+        a repeated graph is an ``executor.predicate`` span, and the
+        runtime's notable transitions — steals,
         arena spills/refills, bin join/retire/fail/slowdown, straggler
         demotions, re-placement windows, chaos triggers — land as
         instant events in the recorder's bounded ring.  When a topology
@@ -1539,11 +1542,17 @@ class Executor:
     def _finish_iteration(self, topo: Topology) -> None:
         topo.iteration += 1
         if topo.failed is None:
+            # the predicate after the iteration its tasks' spans carry
+            sid = (self._obs.begin("executor.predicate", topology=topo.id,
+                                   iteration=topo.iteration - 1)
+                   if self._obs is not None else 0)
             try:
                 stop = topo.predicate()
             except BaseException as e:  # noqa: BLE001
                 topo.failed = e
                 stop = True
+            if self._obs is not None:
+                self._obs.end(sid)
         else:
             stop = True
         if not stop and self._straggler is not None:

@@ -1,41 +1,32 @@
-"""repro_torch.obs — unified observability: spans, metrics, timelines.
+"""repro_torch.obs — observability: spans, metrics, a timeline export.
 
 Three cooperating pieces, each usable alone:
 
-* :class:`SpanRecorder` — a lock-cheap structured span/event recorder.
-  Begin/end spans carry bin/lane/node/stage attribution; instant
-  events mark spills, refills, steals, preemptions, straggler
-  demotions, bin join/retire/fail, and chaos triggers.  Entries land
-  in a bounded flight-recorder ring buffer that can :meth:`dump
+* :class:`SpanRecorder` — a lock-cheap structured span/event recorder
+  on the clock of ``time.time_ns()`` (the clock of a ``torch.profiler``
+  trace).  Begin/end spans carry their parent span and bin/lane/node/
+  stage or request attribution; ``complete`` intervals carry device
+  time read from CUDA events; instant events mark spills, refills,
+  steals, preemptions, straggler demotions, bin join/retire/fail, and
+  chaos triggers.  Entries land in a bounded flight-recorder ring
+  buffer (``dropped`` counts what fell off) that can :meth:`dump
   <SpanRecorder.dump>` a Perfetto-loadable trace on fault.
 * :class:`MetricsRegistry` — named counters, gauges, and histograms
   (nearest-rank p50/p99).  The executor, serving engine, and
   simulator publish into one; their ``stats()`` dicts are back-compat
   views over it.
-* the timeline exporters — :func:`timeline_from_trace` (a live
-  :class:`~repro_torch.sched.TaskProfiler` run), :func:`timeline_from_schedule`
-  (a simulated :class:`~repro_torch.sched.SimReport`), and
-  :func:`timeline_from_recorder` (a flight-recorder ring) all render
-  per-bin copy∥compute lane timelines as Chrome-trace JSON, openable
-  at https://ui.perfetto.dev.  :func:`diff_timelines` aligns a
-  measured run against its replayed simulation and quantifies
-  per-bin/per-lane divergence.
+* :func:`timeline_from_recorder` — a recorder's ring as Chrome-trace
+  JSON (:func:`save_timeline`, checked by :func:`validate_timeline`),
+  openable at https://ui.perfetto.dev.
 
 Everything is off by default: components that accept an ``obs=``
-recorder treat ``None`` as "no instrumentation, zero overhead".
-See docs/observability.md for the span model and workflow.
+recorder treat ``None`` as "no instrumentation".  The spans the
+executor and the serving engine record are listed where they are made
+(``core/executor.py``, ``serving/engine.py``).
 """
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .recorder import SpanRecorder
-from .timeline import (
-    diff_timelines,
-    merge_timelines,
-    save_timeline,
-    timeline_from_recorder,
-    timeline_from_schedule,
-    timeline_from_trace,
-    validate_timeline,
-)
+from .timeline import save_timeline, timeline_from_recorder, validate_timeline
 
 __all__ = [
     "Counter",
@@ -43,11 +34,7 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "SpanRecorder",
-    "diff_timelines",
-    "merge_timelines",
     "save_timeline",
     "timeline_from_recorder",
-    "timeline_from_schedule",
-    "timeline_from_trace",
     "validate_timeline",
 ]

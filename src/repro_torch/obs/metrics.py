@@ -68,49 +68,20 @@ class Gauge:
 
 
 class Histogram:
-    """Sample-keeping histogram with nearest-rank percentiles.
+    """Sample-keeping histogram with nearest-rank percentiles."""
 
-    ``sample_every=N`` (N > 1) keeps only every Nth observation — the
-    hot-path knob for 10^5+-task runs, where appending one float per
-    task dominates the registry's cost.  ``count``/``sum``/percentiles
-    then describe the *kept* samples (an unbiased every-Nth thinning);
-    :attr:`seen` is the true observation count.  The default of 1
-    keeps everything, bit-identical to the pre-knob histogram.
-    """
-
-    def __init__(self, name: str, *, sample_every: int = 1) -> None:
-        if sample_every < 1:
-            raise ValueError(
-                f"histogram {name!r}: sample_every must be >= 1, "
-                f"got {sample_every}")
+    def __init__(self, name: str) -> None:
         self.name = name
-        self.sample_every = sample_every
         self._samples: list[float] = []
-        self._seen = 0
         self._lock = threading.Lock()
 
     def observe(self, v: float) -> None:
         with self._lock:
-            self._seen += 1
-            if self._seen % self.sample_every == 0:
-                self._samples.append(v)
+            self._samples.append(v)
 
     def extend(self, vs: Iterable[float]) -> None:
         with self._lock:
-            if self.sample_every == 1:
-                before = len(self._samples)
-                self._samples.extend(vs)
-                self._seen += len(self._samples) - before
-            else:
-                for v in vs:
-                    self._seen += 1
-                    if self._seen % self.sample_every == 0:
-                        self._samples.append(v)
-
-    @property
-    def seen(self) -> int:
-        """Total observations, including ones thinned by sampling."""
-        return self._seen
+            self._samples.extend(vs)
 
     @property
     def count(self) -> int:
@@ -135,27 +106,17 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Get-or-create registry of named instruments.
+    """Get-or-create registry of named instruments."""
 
-    ``sample_every`` is the default thinning factor for histograms
-    created through :meth:`histogram` (counters and gauges are O(1)
-    per update and never sampled); 1 — the default — keeps every
-    observation.
-    """
-
-    def __init__(self, *, sample_every: int = 1) -> None:
-        if sample_every < 1:
-            raise ValueError(
-                f"sample_every must be >= 1, got {sample_every}")
-        self.sample_every = sample_every
+    def __init__(self) -> None:
         self._instruments: dict[str, Counter | Gauge | Histogram] = {}
         self._lock = threading.Lock()
 
-    def _get(self, name: str, cls: type, **kw: Any) -> Any:
+    def _get(self, name: str, cls: type) -> Any:
         with self._lock:
             inst = self._instruments.get(name)
             if inst is None:
-                inst = self._instruments[name] = cls(name, **kw)
+                inst = self._instruments[name] = cls(name)
             elif type(inst) is not cls:
                 raise TypeError(
                     f"metric {name!r} already registered as "
@@ -168,12 +129,8 @@ class MetricsRegistry:
     def gauge(self, name: str) -> Gauge:
         return self._get(name, Gauge)
 
-    def histogram(self, name: str, *,
-                  sample_every: int | None = None) -> Histogram:
-        """Get or create a histogram (``sample_every`` overrides the
-        registry default; ignored if the name already exists)."""
-        n = self.sample_every if sample_every is None else sample_every
-        return self._get(name, Histogram, sample_every=n)
+    def histogram(self, name: str) -> Histogram:
+        return self._get(name, Histogram)
 
     def names(self) -> list[str]:
         return sorted(self._instruments)

@@ -1,28 +1,50 @@
 """Lock-cheap structured span/event recorder (flight recorder).
 
 The hot path takes no lock: every :meth:`~SpanRecorder.begin` /
-:meth:`~SpanRecorder.end` / :meth:`~SpanRecorder.event` call appends
-one small dict to a bounded ``collections.deque`` — atomic under
-CPython — and span ids come from ``itertools.count`` (also atomic).
-When the ring fills, the oldest entries fall off: the recorder is a
-flight recorder, keeping the most recent window of activity so a
-fault dump shows what led up to the crash, not the start of the run.
+:meth:`~SpanRecorder.end` / :meth:`~SpanRecorder.complete` /
+:meth:`~SpanRecorder.event` call appends one small dict to a bounded
+``collections.deque`` — atomic under CPython — and span ids come from
+``itertools.count`` (also atomic).  When the ring fills, the oldest
+entries fall off and :attr:`~SpanRecorder.dropped` counts them: the
+recorder is a flight recorder, keeping the most recent window of
+activity so a fault dump shows what led up to the crash, not the start
+of the run.  A recorder meant to hold a whole run is sized to it, and
+its reader checks that nothing was dropped.
 
 Entry shape (Chrome-trace phases, so export is a straight rendering):
 
-* ``{"ph": "B", "span": id, "name": ..., "ts": ..., <attrs>}`` —
-  span begin.  Attribution attrs (``bin``, ``lane``, ``node``,
-  ``stage``, ``worker``, ...) are stored only when non-``None``.
+* ``{"ph": "B", "span": id, "name": ..., "ts": ..., "parent": id,
+  <attrs>}`` — span begin.  Attribution attrs (``bin``, ``lane``,
+  ``node``, ``stage``, ``worker``, ``request``, ...) are stored only
+  when non-``None``.
 * ``{"ph": "E", "span": id, "ts": ...}`` — span end.
+* ``{"ph": "X", "span": id, "name": ..., "ts": ..., "end_ts": ...,
+  "parent": id, <attrs>}`` — an interval known only after the fact
+  (:meth:`~SpanRecorder.complete`), such as the device's time between
+  two CUDA events.
 * ``{"ph": "i", "name": ..., "ts": ..., <attrs>}`` — instant event.
 
-Timestamps are ``time.perf_counter()`` seconds (same clock as
-:class:`~repro_torch.sched.TaskProfiler`); the timeline exporter rebases
-them to zero and converts to microseconds.
+``parent`` is the span that was open, innermost, on the calling thread
+when the span began (none at top level): each thread keeps a stack of
+its open spans.  A span begun with ``detached=True`` — one that ends on
+another thread, such as a request's wait in a queue — takes no parent
+and is not pushed; it carries the id of what it times instead (a
+``request=`` attr).  Ending a span also pops any span begun after it on
+that thread and left open (a raise skipped its end), which then never
+shows as completed.
+
+Clock: integer nanoseconds on the clock of ``time.time_ns()`` — the
+wall clock that ``torch.profiler``'s Chrome trace stamps on, less its
+``baseTimeNanoseconds`` — so the program's spans lie beside a device
+trace and beside spans a caller stamps with ``time.time_ns()``.  Each
+stamp is ``time.perf_counter_ns()`` plus one offset taken at
+construction (:attr:`SpanRecorder.offset_ns`): monotonic within the
+run, on the wall clock as it stood at construction.
 """
 from __future__ import annotations
 
 import itertools
+import threading
 import time
 from collections import deque
 from typing import Any, Iterator
@@ -31,60 +53,91 @@ from contextlib import contextmanager
 DEFAULT_CAPACITY = 65536
 
 
-class SpanRecorder:
-    """Bounded ring of spans + instant events; dumps on fault.
+def _wall_offset_ns() -> int:
+    """``time.time_ns() - time.perf_counter_ns()``, the wall clock read on
+    both sides of the monotonic one."""
+    a = time.time_ns()
+    p = time.perf_counter_ns()
+    b = time.time_ns()
+    return (a + b) // 2 - p
 
-    ``capacity`` bounds the ring (oldest entries evicted first).
-    ``dump_path``, when set, is where :meth:`on_fault` writes a
-    Perfetto-loadable Chrome-trace JSON of the ring's contents.
-    ``sample_every=N`` keeps only every Nth span (see :meth:`begin`);
-    the default of 1 records everything and is byte-identical to the
-    pre-knob recorder.
+
+class _Thread:
+    """One thread's open spans and its count of appended entries."""
+    __slots__ = ("stack", "appended")
+
+    def __init__(self) -> None:
+        self.stack: list[int] = []
+        self.appended = 0
+
+
+class SpanRecorder:
+    """Bounded ring of spans, intervals and instant events; dumps on
+    fault.
+
+    ``capacity`` bounds the ring (oldest entries evicted first, counted
+    in :attr:`dropped`).  ``dump_path``, when set, is where
+    :meth:`on_fault` writes a Perfetto-loadable Chrome-trace JSON of the
+    ring's contents.
     """
 
-    clock = staticmethod(time.perf_counter)
-
     def __init__(self, capacity: int = DEFAULT_CAPACITY, *,
-                 dump_path: str | None = None,
-                 sample_every: int = 1) -> None:
+                 dump_path: str | None = None) -> None:
         if capacity <= 0:
             raise ValueError(f"capacity must be positive, got {capacity}")
-        if sample_every < 1:
-            raise ValueError(
-                f"sample_every must be >= 1, got {sample_every}")
         self.capacity = capacity
         self.dump_path = dump_path
-        self.sample_every = sample_every
+        #: what :meth:`clock` adds to ``time.perf_counter_ns()``
+        self.offset_ns = _wall_offset_ns()
         self._ring: deque[dict[str, Any]] = deque(maxlen=capacity)
         self._ids = itertools.count(1)
-        self._tick = itertools.count(1)
+        self._local = threading.local()
+        self._threads: list[_Thread] = []
+        self._cleared = 0
+
+    def clock(self) -> int:
+        """Now, in nanoseconds on the ``time.time_ns()`` clock."""
+        return time.perf_counter_ns() + self.offset_ns
+
+    def _thread(self) -> _Thread:
+        try:
+            return self._local.t
+        except AttributeError:
+            t = self._local.t = _Thread()
+            self._threads.append(t)
+            return t
+
+    def _append(self, t: _Thread, e: dict[str, Any]) -> None:
+        t.appended += 1
+        self._ring.append(e)
 
     # -- recording (lock-free) -----------------------------------------
     def begin(self, name: str, *, bin: Any = None, lane: str | None = None,
-              node: Any = None, stage: Any = None, **attrs: Any) -> int:
-        """Open a span; returns the span id to pass to :meth:`end`.
-
-        With ``sample_every=N`` (N > 1), only every Nth begin records a
-        span; the rest return ``0``, which :meth:`end` ignores — one
-        atomic counter bump per skipped span, the knob for 10^5+-task
-        runs where even ring appends show up.  Instant events are never
-        sampled (spills, steals, faults are rare and must survive).
-        """
-        if self.sample_every > 1 and next(self._tick) % self.sample_every:
-            return 0
+              node: Any = None, stage: Any = None, detached: bool = False,
+              **attrs: Any) -> int:
+        """Open a span; returns the span id to pass to :meth:`end`.  The
+        calling thread's innermost open span is its ``parent``, unless
+        ``detached`` (module docstring)."""
+        t = self._thread()
         sid = next(self._ids)
         e: dict[str, Any] = {"ph": "B", "span": sid, "name": name,
                              "ts": self.clock()}
+        if not detached:
+            if t.stack:
+                e["parent"] = t.stack[-1]
+            t.stack.append(sid)
         _put(e, bin=bin, lane=lane, node=node, stage=stage, **attrs)
-        self._ring.append(e)
+        self._append(t, e)
         return sid
 
     def end(self, span: int, **attrs: Any) -> None:
-        if span <= 0:     # unsampled begin (sample_every > 1)
-            return
+        t = self._thread()
         e: dict[str, Any] = {"ph": "E", "span": span, "ts": self.clock()}
         _put(e, **attrs)
-        self._ring.append(e)
+        self._append(t, e)
+        stack = t.stack
+        if span in stack:
+            del stack[stack.index(span):]
 
     @contextmanager
     def span(self, name: str, **attrs: Any) -> Iterator[int]:
@@ -94,17 +147,39 @@ class SpanRecorder:
         finally:
             self.end(sid)
 
+    def complete(self, name: str, start: int, end: int,
+                 **attrs: Any) -> int:
+        """Record an interval ``[start, end]`` (nanoseconds on
+        :meth:`clock`'s clock) known after the fact; its parent is the
+        calling thread's innermost open span.  Returns its id."""
+        t = self._thread()
+        sid = next(self._ids)
+        e: dict[str, Any] = {"ph": "X", "span": sid, "name": name,
+                             "ts": start, "end_ts": end}
+        if t.stack:
+            e["parent"] = t.stack[-1]
+        _put(e, **attrs)
+        self._append(t, e)
+        return sid
+
     def event(self, name: str, *, bin: Any = None, lane: str | None = None,
               node: Any = None, span: int | None = None,
               **attrs: Any) -> None:
         """Record an instant event (spill, steal, preemption, ...)."""
         e: dict[str, Any] = {"ph": "i", "name": name, "ts": self.clock()}
         _put(e, bin=bin, lane=lane, node=node, span=span, **attrs)
-        self._ring.append(e)
+        self._append(self._thread(), e)
 
     # -- inspection / draining -----------------------------------------
     def __len__(self) -> int:
         return len(self._ring)
+
+    @property
+    def dropped(self) -> int:
+        """Entries that fell off the ring since construction (or the last
+        :meth:`clear`); exact once no thread is recording."""
+        total = sum(t.appended for t in list(self._threads))
+        return max(0, total - self._cleared - len(self._ring))
 
     def entries(self) -> list[dict[str, Any]]:
         """Snapshot of the ring, oldest first."""
@@ -116,25 +191,31 @@ class SpanRecorder:
                 if e["ph"] == "i" and (name is None or e["name"] == name)]
 
     def spans(self) -> list[dict[str, Any]]:
-        """Completed spans, paired from B/E entries still in the ring.
+        """Completed spans and intervals still in the ring, in the order
+        they ended.
 
-        Each returned dict is the begin entry plus ``end_ts``; spans
-        whose begin fell off the ring, or that are still open, are
-        dropped (the flight recorder keeps a window, not the world).
+        A span is its begin entry plus ``end_ts``; an interval is its
+        entry.  Spans whose begin fell off the ring, or that are still
+        open, are left out (the flight recorder keeps a window, not the
+        world).
         """
         open_: dict[int, dict[str, Any]] = {}
         done: list[dict[str, Any]] = []
         for e in list(self._ring):
-            if e["ph"] == "B":
+            ph = e["ph"]
+            if ph == "B":
                 open_[e["span"]] = e
-            elif e["ph"] == "E":
+            elif ph == "E":
                 b = open_.pop(e["span"], None)
                 if b is not None:
                     done.append({**b, "end_ts": e["ts"]})
+            elif ph == "X":
+                done.append(dict(e))
         return done
 
     def clear(self) -> None:
         self._ring.clear()
+        self._cleared = sum(t.appended for t in list(self._threads))
 
     # -- fault handling ------------------------------------------------
     def dump(self, path: str | None = None) -> str | None:

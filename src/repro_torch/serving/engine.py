@@ -35,7 +35,32 @@ ticks/preemptions/kv_moves, histograms for TTFT and inter-token
 latency — and :meth:`stats` is a back-compat view over it.  Pass
 ``obs=`` a :class:`~repro_torch.obs.SpanRecorder` to get instant events for
 preemptions, KV migrations, and bin join/retire/fail on the same
-timeline as the executor's spans.
+timeline as the executor's spans, and the engine's own spans, each of
+one request carrying ``request=<id>``:
+
+* ``engine.tick`` — the whole tick (its parent: the executor's task
+  span when a tick is a graph iteration);
+* ``engine.admit`` — the admission phase: the queue scan, the
+  scheduler's placement (``_place``), the arena, and the prefills of
+  the requests it seats;
+* ``request.queue`` — a request's wait in the queue, from
+  :meth:`submit` (or a preemption's re-queue, ``preempted=True``) to the
+  tick that seats it; detached: it begins and ends on different threads;
+* ``engine.prefill`` (``slot``, ``length``) — one per seated request:
+  the cache reset, the prefill, the greedy token;
+* ``engine.decode`` (``slot``, ``pos``) — one per slot step;
+* ``engine.sync`` — the ``.item()`` of the greedy token, inside its
+  ``engine.prefill`` or ``engine.decode``.
+
+On the card the recorder also gets the device's time for each prefill
+and decode step (``serving.graphs.DeviceIntervals``): an event before
+its first enqueue (the cache reset, the token copy, the replays) and one
+after the argmax, read after the ``.item()`` the tick waits on anyway,
+as ``device.prefill`` / ``device.decode`` intervals on the recorder's
+clock.  ``engine.metrics`` then counts their seconds (``device_busy_s``)
+and the seconds blocked in ``.item()`` (``host_sync_s``).  The CPU has
+no device intervals and no device counters.  Without a recorder each
+site costs one ``is not None`` test.
 
 **On the card**: prefill and decode run the port's decoder
 (``repro_torch.models.transformer``) with the hand-written kernels;
@@ -96,7 +121,8 @@ from ..sched import (
     build_groups,
     get_scheduler,
 )
-from .graphs import BucketPrefillGraphs, DecodeGraphs, PrefillGraphs
+from .graphs import (BucketPrefillGraphs, DecodeGraphs, DeviceIntervals,
+                     PrefillGraphs)
 from .kv_cache import PagedKVArena
 
 #: request lifecycle states (``Request.state``)
@@ -233,9 +259,17 @@ class ServingEngine:
                                        self.decode_graphs, max_seq,
                                        self.device)
         self._obs = obs
+        #: request id -> its open ``request.queue`` span (with a recorder)
+        self._queue_spans: dict[int, int] = {}
         #: public registry — counters/histograms the engine publishes
         #: into; :meth:`stats` is a back-compat view over it
         self.metrics = MetricsRegistry()
+        #: the device intervals, on the card with a recorder
+        self._intervals = None
+        if obs is not None and self.device.type == "cuda":
+            self._intervals = DeviceIntervals(obs.clock, self.device)
+            self._device_busy = self.metrics.counter("device_busy_s")
+            self._host_sync = self.metrics.counter("host_sync_s")
         self._ticks = self.metrics.counter("ticks")
         self._preemptions = self.metrics.counter("preemptions")
         self._kv_moves = self.metrics.counter("kv_moves")
@@ -291,6 +325,9 @@ class ServingEngine:
         req = Request(next(self._ids), np.asarray(prompt, np.int32),
                       max_new_tokens, arrival_s=self._clock())
         with self._lock:
+            if self._obs is not None:
+                self._queue_spans[req.id] = self._obs.begin(
+                    "request.queue", detached=True, request=req.id)
             self._queue.append(req)
         return req.id
 
@@ -480,10 +517,22 @@ class ServingEngine:
 
     def _tick(self) -> bool:
         """One engine iteration: admit → prefill news → decode actives."""
+        obs = self._obs
+        if obs is None:
+            return self._tick_body(None)
+        sid = obs.begin("engine.tick")
+        try:
+            return self._tick_body(obs)
+        finally:
+            obs.end(sid)
+
+    def _tick_body(self, obs) -> bool:
         self._ticks.inc()
         self._apply_bin_events()
         # 1. admission (scheduler-placed, arena-gated)
         with self._lock:
+            if obs is not None:
+                admit = obs.begin("engine.admit")
             stalled = False
             for i in range(self.max_slots):
                 if stalled:
@@ -497,6 +546,9 @@ class ServingEngine:
                     if need > self.max_seq:
                         nxt._advance(state=DONE, finished_s=self._clock())
                         self._queue.popleft()     # reject oversize
+                        if obs is not None:
+                            obs.end(self._queue_spans.pop(nxt.id),
+                                    rejected=True)
                         self.completed.append(nxt)
                         continue
                     groups, home, dbin = self._place(nxt)
@@ -518,6 +570,12 @@ class ServingEngine:
                     self._req_groups[req.id] = groups
                     del self._placed[req.id]
                     req._advance(state=PREFILL)
+                    if obs is not None:
+                        obs.end(self._queue_spans.pop(req.id))
+                        sid = obs.begin("engine.prefill", request=req.id,
+                                        slot=i, length=len(req.prompt))
+                        if self._intervals is not None:
+                            self._intervals.open()
                     # prefill this slot, from the state init_cache gives:
                     # the last occupant's recurrent state must not leak,
                     # and a chunk's last key tile reads rows past it
@@ -530,18 +588,25 @@ class ServingEngine:
                             dtype=torch.long).to(self.device)
                         logits, self._caches[i] = transformer.prefill(
                             self.cfg, self.params, tokens, self._caches[i])
-                    req.generated.append(int(logits[0].argmax().item()))
+                    top = logits[0].argmax()
+                    req.generated.append(
+                        int(top.item()) if obs is None else
+                        self._read_token(obs, top, "device.prefill", req.id))
                     now = self._clock()
                     if req.first_token_s is None:
                         self._ttft.observe(now - req.arrival_s)
                         req._advance(first_token_s=now)
                     self._last_token_s[req.id] = now
                     req._advance(state=DECODING)
+                    if obs is not None:
+                        obs.end(sid)
                     self._arenas[home].extend(req.id)
                     # decode placed off the KV home: migrate the pages
                     # (charged) so decode runs where its cache lives
                     if dbin != home:
                         self._migrate_kv(req, dbin)
+            if obs is not None:
+                obs.end(admit)
 
         # 2. decode step for all active slots
         active = [(i, r) for i, r in enumerate(self._slots) if r is not None]
@@ -551,6 +616,11 @@ class ServingEngine:
             if len(req.generated) >= req.max_new_tokens:
                 self._retire(i)
                 continue
+            if obs is not None:
+                sid = obs.begin("engine.decode", request=req.id, slot=i,
+                                pos=req.total_tokens - 1)
+                if self._intervals is not None:
+                    self._intervals.open()
             if self.decode_graphs is not None:
                 # the cache holds the prompt and every generated token
                 # but the last, which this step feeds
@@ -561,17 +631,43 @@ class ServingEngine:
                                    device=self.device)
                 logits, self._caches[i] = transformer.decode_step(
                     self.cfg, self.params, tok, self._caches[i])
-            req.generated.append(int(logits[0].argmax().item()))
+            top = logits[0].argmax()
+            req.generated.append(
+                int(top.item()) if obs is None else
+                self._read_token(obs, top, "device.decode", req.id))
             now = self._clock()
             last = self._last_token_s.get(req.id)
             if last is not None:
                 self._itl.observe(now - last)
             self._last_token_s[req.id] = now
+            if obs is not None:
+                obs.end(sid)
             if not self._grow(req):
                 continue                          # req went back to queue
             if len(req.generated) >= req.max_new_tokens:
                 self._retire(i)
         return self._has_work()
+
+    def _read_token(self, obs, top: torch.Tensor, interval: str,
+                    rid: int) -> int:
+        """The greedy token ``top`` read back under a recorder: its
+        ``.item()`` in an ``engine.sync`` span; on the card the device
+        interval closed before it and read after it, and both counters
+        advanced (module docstring)."""
+        dev = self._intervals
+        if dev is not None:
+            dev.close()
+        sid = obs.begin("engine.sync", request=rid)
+        t0 = time.perf_counter()
+        tok = int(top.item())
+        blocked = time.perf_counter() - t0
+        obs.end(sid)
+        if dev is not None:
+            start, end = dev.read()
+            obs.complete(interval, start, end, request=rid)
+            self._device_busy.inc((end - start) / 1e9)
+            self._host_sync.inc(blocked)
+        return tok
 
     def _grow(self, req: Request) -> bool:
         """Extend ``req``'s page run, preempting the youngest *other*
@@ -631,6 +727,10 @@ class ServingEngine:
                 if r is victim:
                     self._slots[i] = None
             self._finish_groups(victim)
+            if self._obs is not None:
+                self._queue_spans[victim.id] = self._obs.begin(
+                    "request.queue", detached=True, request=victim.id,
+                    preempted=True)
             self._queue.appendleft(victim)
             self._preemptions.inc()
 

@@ -49,6 +49,11 @@ work, and reads every weight once.
 
 Nothing here falls back to eager code: a capture or replay error
 raises.
+
+:class:`DeviceIntervals` brackets the device work of one prefill or
+decode step between two CUDA events and puts it on a span recorder's
+clock: the engine's ``device.prefill`` / ``device.decode`` intervals
+when it is given a recorder on the card.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ from .. import kernels
 from ..models import moe, transformer
 
 __all__ = ["BucketGraph", "BucketPrefillGraphs", "DecodeGraph",
-           "DecodeGraphs", "PrefillGraph", "PrefillGraphs", "buckets",
+           "DecodeGraphs", "DeviceIntervals", "PrefillGraph", "PrefillGraphs", "buckets",
            "eager_bucket", "eager_ladder", "plan", "top_rung"]
 
 #: the longest chunk of the ladder
@@ -156,6 +161,66 @@ class DecodeGraphs:
         ``pos``: (1, V) logits, valid until that slot's next replay."""
         self.replays += 1
         return self.slots[slot](token, pos)
+
+
+class DeviceIntervals:
+    """The device's time from :meth:`open` to :meth:`close`, from CUDA
+    events on the current stream, on the clock of ``clock()`` (integer
+    nanoseconds: a ``SpanRecorder``'s).
+
+    Made when the recorder is attached: a ``synchronize``, then a
+    reference event recorded on the idle device between two stamps of
+    ``clock()``; an event's time is the later stamp plus its
+    ``elapsed_time`` from the reference.  A reference whose two stamps
+    lie more than :attr:`ANCHOR_SLACK_NS` apart (the thread lost the GIL
+    or the core around the record) is not taken.  :meth:`read` is called
+    only after a host sync that waited on the close (the engine's
+    ``.item()`` of the greedy token), so it waits on nothing; the device
+    is idle then, and a reference older than :attr:`REANCHOR_NS` is
+    recorded anew there, which bounds the float32 milliseconds of
+    ``elapsed_time`` and any drift between the device's clock and the
+    host's.  One pair of events serves every interval: each is read
+    before the next opens."""
+
+    #: the age at which :meth:`read` records the reference anew
+    REANCHOR_NS = 1_000_000_000
+    #: the most two stamps around a reference's record may lie apart
+    ANCHOR_SLACK_NS = 50_000
+
+    def __init__(self, clock, device):
+        self.clock = clock
+        self._ref, self._spare, self._start, self._end = (
+            torch.cuda.Event(enable_timing=True) for _ in range(4))
+        torch.cuda.synchronize(device)
+        while not self._anchor():
+            pass
+
+    def _anchor(self) -> bool:
+        """Record the spare reference on the idle device; take it if the
+        stamps around the record lie close."""
+        a = self.clock()
+        self._spare.record()
+        b = self.clock()
+        if b - a > self.ANCHOR_SLACK_NS:
+            return False
+        self._ref, self._spare, self._ref_ns = self._spare, self._ref, b
+        return True
+
+    def open(self) -> None:
+        self._start.record()
+
+    def close(self) -> None:
+        self._end.record()
+
+    def read(self) -> tuple[int, int]:
+        """(start, end) of the interval last closed, in ``clock()``'s
+        nanoseconds; after a host sync that waited on its close."""
+        ref, ns = self._ref, self._ref_ns
+        start = ns + round(ref.elapsed_time(self._start) * 1e6)
+        end = ns + round(ref.elapsed_time(self._end) * 1e6)
+        if end - ns > self.REANCHOR_NS:
+            self._anchor()
+        return start, end
 
 
 def top_rung(max_seq: int) -> int:
