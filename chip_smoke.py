@@ -6,8 +6,8 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build: the six CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   nvcc, one process per source, all started together;
+2. build: the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+   with nvcc, one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version at the serving
    paths' shapes (phi3-mini, recurrentgemma-2b, llama4-maverick,
    deepseek-v2's MLA heads (q/k 192, v 128) and routing, qwen2-vl's
@@ -162,10 +162,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fake mesh, and the same step functions run on the card: the FLOPs
    equal ``FlopCounterMode``'s count of the real step, the predicted
    peak is 0.95-1.15 of ``max_memory_allocated`` and the roofline bound
-   at most 1.05 of the median step (decode_attention = 32, flash = 80
-   and flash_bwd = 40 in the real steps); the measured train step is
-   the eager one, and the same step replayed from a ``TrainStepGraph``
-   is timed beside it against the same bound; the same three checks for
+   at most 1.05 of the median step (decode_attention = 32, flash = 80,
+   flash_bwd = 40 and adamw = 11, one a leaf, in the real steps: the
+   update goes through its custom op there and launches the kernel, and
+   the dry-run counts that op's 28 bytes a parameter); the measured
+   train step is the eager one, and the same step replayed from a
+   ``TrainStepGraph`` is timed beside it against the same bound; the
+   same three checks for
    xlstm-1.3b's prefill at full depth (48 blocks, B 1 x S 512) and its
    8-block train step (phase 6's cut, B 1 x S 512, accum 1), which the
    dry-run traces with each time loop as one op counting its steps
@@ -216,7 +219,10 @@ deepseek-v2's MLA at S 2048, with SDPA's backward as
 the yardstick and its backend named, each pass's device time and the
 launch shape, and the tensor-core kernels' registers and spills from
 the build; ``rglru_scan_bwd`` at recurrentgemma's train shape in f32
-and bf16) against their plain versions.  Phase 4 also trains reduced
+and bf16) against their plain versions, and AdamW's fused update
+(``adamw``) at minicpm-2b's largest leaf and over its whole
+2.725e9-parameter state, beside the plain version's thirteen passes a
+leaf and ``torch._fused_adamw_`` (a yardstick the port never calls).  Phase 4 also trains reduced
 minicpm-2b, recurrentgemma, llama4, deepseek-v2, xLSTM (canary stack)
 and qwen2-vl (patch embeddings in the batch) (f32 compute) for 3 steps
 on the card (through a ``TrainStepGraph``: eager step 1, capture, two
@@ -362,6 +368,7 @@ def kernel_phase(torch, dev, logs: dict) -> dict:
     chosen.update(_flash_bwd_cases(torch, dev, randn, flush,
                                    logs.get("flash_attention_bwd")))
     chosen.update(_rglru_bwd_cases(torch, dev, randn, flush))
+    chosen.update(_adamw_cases(torch, dev, flush))
     print(f"phase 3's launches of the flash kernels' f32 route (checks and "
           f"timing, not a path): {_read_f32_counts()}")
     return chosen
@@ -969,6 +976,115 @@ def _rglru_bwd_cases(torch, dev, randn, flush) -> dict:
     return chosen
 
 
+def _adamw_cases(torch, dev, flush) -> dict:
+    """AdamW's update at minicpm-2b's largest leaf (w1: 40 x 2304 x 5760
+    f32, decayed) against the plain version's CUDA passes (p, m and v
+    within 1e-9 + 1e-6·|ref|, the CPU parity tolerance; the elements that
+    are not bit-identical counted), then over minicpm-2b's whole state,
+    one launch a leaf, and ``adamw_update`` whole (the global norm
+    included).  library_ms: ``torch._fused_adamw_`` over the same leaves,
+    a yardstick the port never calls (it has no global-norm clip)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw, adamw_plain
+    from repro_torch.kernels.adamw.ops import adamw_cost
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.training import optimizer as opt_lib
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def state(shapes):
+        def draw(shape, scale):
+            return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+        gs = [draw(s, 1e-2) for s in shapes]
+        ps = [draw(s, 2e-2) for s in shapes]
+        ms = [draw(s, 1e-3) for s in shapes]
+        vs = [draw(s, 3e-3).square_() for s in shapes]
+        return gs, ps, ms, vs
+
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    scalars = tuple(torch.full((), x, device=dev) for x in
+                    (0.37, 3e-4, 1 - 0.9 ** 3, 1 - 0.95 ** 3))
+
+    def library(gs, ps, ms, vs):
+        steps = [torch.full((), 3.0, device=dev) for _ in ps]
+        return lambda: torch._fused_adamw_(
+            ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
+
+    specs = opt_lib.leaves(param_specs(get_config(MINICPM)))
+    big = max(specs, key=lambda t: t.numel())
+    leaf = [t[0] for t in state([big.shape])]
+    got, want = ([t.clone() for t in leaf] for _ in range(2))
+    adamw(*got, *scalars, **hyper)
+    adamw_plain(*want, *scalars, **hyper)
+    torch.cuda.synchronize()
+    err, differ = 0.0, {}
+    for name, g, w in zip("gpmv", got, want):
+        if name == "g":
+            if not torch.equal(g, leaf[0]):
+                raise AssertionError("adamw: the kernel wrote the gradient")
+            continue
+        diff = (g - w).abs()
+        if bool((diff > 1e-9 + 1e-6 * w.abs()).any()) or \
+                not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"adamw: {name} disagrees with the plain "
+                                 f"version, max abs err {float(diff.max())}")
+        err = max(err, float(diff.max()))
+        differ[name] = int((g != w).sum())
+    del got, want
+    bound, bound_by = _bounds(*adamw_cost(*leaf[:2]), "float32")
+    row = {"name": "adamw", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/adamw.cu",
+           "replaces": "none (the reference's update is one XLA fusion, "
+                       "src/repro/training/optimizer.py adamw_update)",
+           "max_abs_err": err,
+           "ms": _median_ms(torch, lambda: adamw(*leaf, *scalars, **hyper),
+                            flush),
+           "plain_ms": _median_ms(torch, lambda: adamw_plain(
+               *leaf, *scalars, **hyper), flush, reps=5),
+           "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": _median_ms(torch, library(*([t] for t in leaf)),
+                                    flush, reps=5)}
+    n = leaf[1].numel()
+    print(f"  adamw minicpm-2b largest leaf {tuple(big.shape)} f32 ({n} "
+          f"params): {err} (elements not bit-identical to the plain "
+          f"version: {differ}) 1e-9 1e-6 {row['ms']} {row['plain_ms']} "
+          f"{row['library_ms']} {bound} {bound_by}; "
+          f"{28 * n / row['ms'] / 1e9} TB/s = "
+          f"{28 * n / row['ms'] * 1e3 / HBM_BYTES_S} of 3.35 TB/s")
+    del leaf
+    gs, ps, ms, vs = state([t.shape for t in specs])
+    n = sum(t.numel() for t in ps)
+
+    def passes(fn):
+        def run():
+            for g, p, m, v in zip(gs, ps, ms, vs):
+                fn(g, p, m, v, *scalars, **hyper)
+        return run
+
+    before = adamw.launches
+    fused = _median_ms(torch, passes(adamw), flush, reps=5)
+    launches = (adamw.launches - before) // 6
+    plain = _median_ms(torch, passes(adamw_plain), flush, reps=3)
+    lib = _median_ms(torch, library(gs, ps, ms, vs), flush, reps=5)
+    cfg = opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(3e-4, 100,
+                                                               1000))
+    opt = {"m": ms, "v": vs, "step": torch.zeros((), dtype=torch.int32,
+                                                 device=dev)}
+    whole = _median_ms(torch, lambda: opt_lib.adamw_update(cfg, gs, ps, opt),
+                       flush, reps=5)
+    bound, bound_by = _bounds(*map(sum, zip(*map(adamw_cost, gs, ps))),
+                              "float32")
+    print(f"  adamw minicpm-2b whole state ({len(ps)} leaves, {n} params, "
+          f"{launches} launches): {fused} {plain} {lib} {bound} {bound_by}; "
+          f"adamw_update whole (global norm included) {whole} ms, bound "
+          f"{32 * n / HBM_BYTES_S * 1e3} ms (32 B a parameter)")
+    del gs, ps, ms, vs, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"adamw": row}
+
+
 def reference_phase(torch, dev) -> None:
     """Reduced phi3-mini, recurrentgemma, llama4, xLSTM, deepseek-v2 (MLA),
     qwen2-vl (M-RoPE) and musicgen (f32 compute) on the card with the
@@ -1279,7 +1395,7 @@ def _tree_bytes(tree) -> int:
 
 #: the kernels whose launches each serve and train phase counts
 COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
-           "flash_attention_bwd", "rglru_scan_bwd")
+           "flash_attention_bwd", "rglru_scan_bwd", "adamw")
 #: the H100's bf16 dense peak, the MFU denominator
 MFU_PEAK = PEAK_FLOPS["bfloat16"]
 
@@ -1906,6 +2022,13 @@ def train_phase(torch, dev, cfg, *, batch: int, seq: int, steps: int,
     return counts
 
 
+def _n_leaves(cfg) -> int:
+    """The parameter leaves of ``cfg``: AdamW's launches a step."""
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.training.optimizer import leaves
+    return len(leaves(param_specs(cfg)))
+
+
 def _model_flops(cfg, batch: int, seq: int, n_matmul: int
                  ) -> tuple[int, str]:
     """A train step's model FLOPs and their formula: 6·N·T over the
@@ -2389,6 +2512,10 @@ def _card_cells(torch, dev, card: str) -> dict:
                 raise AssertionError(f"{tag}: the bound {t_bound} s is "
                                      f"{t_bound / graphed[0]} of the "
                                      f"graphed step: a count is wrong")
+        if shape.kind == "train" and counts["adamw"] != _n_leaves(cfg):
+            raise AssertionError(f"{tag}: {counts['adamw']} adamw launches "
+                                 f"under FlopCounterMode, not one a leaf "
+                                 f"({_n_leaves(cfg)})")
         if int(roof["flops_per_chip"]) != flops:
             raise AssertionError(f"{tag}: the dry-run counts "
                                  f"{roof['flops_per_chip']} FLOPs, the card "
@@ -2796,7 +2923,8 @@ def train_lm_case(torch, dev, card: str) -> dict:
         raise AssertionError(f"train_lm twin: latest checkpoint step "
                              f"{out['latest_step']}")
     _check_counts(counts, {"flash_attention": layers * steps,
-                           "flash_attention_bwd": layers * steps})
+                           "flash_attention_bwd": layers * steps,
+                           "adamw": _n_leaves(out["cfg"]) * steps})
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2944,6 +3072,8 @@ def main() -> int:
     def trained(name, cfg, batch, seq, steps, per_step, cut="nothing cut"):
         counts = train_phase(torch, dev, cfg, batch=batch, seq=seq,
                              steps=steps, cut=cut)
+        # AdamW: one launch a leaf a step
+        per_step = per_step | {"adamw": _n_leaves(cfg)}
         _check_counts(counts, {k: n * steps for k, n in per_step.items()})
         for k, n in counts.items():
             launches.setdefault(k, {})[f"{name} train"] = n

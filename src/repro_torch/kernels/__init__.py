@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for NVIDIA Hopper: one per TPU kernel of the
-serving path, and the backwards of flash attention and the RG-LRU scan
-that training needs (the reference differentiates those in plain JAX).
+serving path, the backwards of flash attention and the RG-LRU scan that
+training needs (the reference differentiates those in plain JAX), and
+AdamW's update of a leaf in one pass (the reference's is an XLA fusion).
 
 Each subpackage's ``ops.py`` holds the wrapper, the plain PyTorch
 version of the same function (taken for a CPU tensor, and the yardstick
@@ -12,8 +13,11 @@ what the kernel does not take) and the kernel's custom op
 implementation gives the outputs' shapes for a fake tensor
 (``launch/dryrun.py``), its cost formula (``*_cost``, registered by
 ``_cost``) counts the call's FLOPs and bytes, and its sharding rule
-(``_dtensor``) runs it per rank on DTensors.  ``_build`` compiles the
-sources with ``nvcc`` for ``sm_90a`` at first use.
+(``_dtensor``) runs it per rank on DTensors.  ``adamw`` has no sharding
+rule: its wrapper hands the op each rank's block (the update is
+elementwise), and a counted call on CPU tensors takes the op as well.
+``_build`` compiles the sources with ``nvcc`` for ``sm_90a`` at first
+use.
 
 A wrapper counts a launch when its Python code runs, which a CUDA
 graph's replay does not do (the flash wrappers count their f32 route's
@@ -33,6 +37,7 @@ from .decode_attention.ops import decode_attention, decode_attention_plain
 from .rglru_scan.ops import (rglru_scan, rglru_scan_bwd, rglru_scan_bwd_plain,
                              rglru_scan_plain)
 from .moe_gating.ops import moe_gating, moe_gating_plain
+from .adamw.ops import adamw, adamw_plain
 
 __all__ = ["COUNTED", "F32_ROUTES", "GraphLaunches", "launch_counts",
            "flash_attention",
@@ -40,11 +45,11 @@ __all__ = ["COUNTED", "F32_ROUTES", "GraphLaunches", "launch_counts",
            "flash_attention_bwd_plain", "decode_attention",
            "decode_attention_plain", "rglru_scan", "rglru_scan_plain",
            "rglru_scan_bwd", "rglru_scan_bwd_plain", "moe_gating",
-           "moe_gating_plain"]
+           "moe_gating_plain", "adamw", "adamw_plain"]
 
 #: the wrappers that count their kernels' launches (``<wrapper>.launches``)
 COUNTED = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
-           "flash_attention_bwd", "rglru_scan_bwd")
+           "flash_attention_bwd", "rglru_scan_bwd", "adamw")
 #: the flash kernels' f32 routes, counted apart as well
 #: (``<wrapper>.f32_launches``, under the wrapper's name and ``_f32``)
 F32_ROUTES = ("flash_attention_f32", "flash_attention_bwd_f32")

@@ -29,7 +29,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: every kernel source of the package, by stem
 SOURCES = ("flash_attention", "decode_attention", "rglru_scan", "moe_gating",
-           "flash_attention_bwd", "rglru_scan_bwd")
+           "flash_attention_bwd", "rglru_scan_bwd", "adamw")
 
 _lock = threading.Lock()
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -22,8 +22,8 @@ from typing import Callable
 
 from ..core.streams import is_dtensor
 
-__all__ = ["kv_for_q_heads", "local_operands", "register_rules", "route",
-           "sharding_rule"]
+__all__ = ["counting_mode", "kv_for_q_heads", "local_operands",
+           "register_rules", "route", "sharding_rule"]
 
 #: each custom op's sharding rule, registered with DTensor on first use
 _RULES: dict = {}
@@ -61,17 +61,22 @@ def route(t) -> str:
     recomputed, as they would have it, and a captured step under them
     launches directly too."""
     from torch._subclasses.fake_tensor import is_fake
-    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
-    from torch.utils.checkpoint import (_CachedTorchDispatchMode,
-                                        _CachingTorchDispatchMode)
     if is_dtensor(t) or is_fake(t) or t.device.type == "meta":
         return "op"
     if t.device.type == "cpu":
         return "plain"
+    return "op" if counting_mode() else "launch"
+
+
+def counting_mode() -> bool:
+    """Whether a Python dispatch mode other than selective checkpointing's
+    own is active: ``FlopCounterMode``, a memory tracker, a tracer."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    from torch.utils.checkpoint import (_CachedTorchDispatchMode,
+                                        _CachingTorchDispatchMode)
     sac = (_CachedTorchDispatchMode, _CachingTorchDispatchMode)
-    return "op" if any(not isinstance(m, sac)
-                       for m in _get_current_dispatch_mode_stack()) \
-        else "launch"
+    return any(not isinstance(m, sac)
+               for m in _get_current_dispatch_mode_stack())
 
 
 def sharding_rule(op) -> Callable:

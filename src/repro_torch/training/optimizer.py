@@ -9,8 +9,10 @@ gradients and decays every leaf of two or more dims (the stacked
 ``(count, d)`` norm scales too), which this copies leaf for leaf.  The
 step, the learning rate and the metrics stay tensors on the device (no
 ``.item()``), and the update runs IN PLACE on the parameters, ``m`` and
-``v`` (and scales the gradients in place), one pass per leaf, so its
-temporaries are one leaf deep.
+``v``, one leaf at a time through ``kernels.adamw``: on the card one
+fused pass a leaf; on the CPU the plain version's elementwise passes,
+whose temporaries are one leaf deep.  The gradients are read, never
+written.
 """
 from __future__ import annotations
 
@@ -20,11 +22,13 @@ from typing import Any, Callable
 
 import torch
 
+from ..kernels.adamw.ops import adamw
+
 Params = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
 __all__ = ["AdamWConfig", "adamw_update", "cosine_schedule", "global_norm",
-           "init_opt_state", "leaves", "wsd_schedule"]
+           "init_opt_state", "leaves", "step_scalars", "wsd_schedule"]
 
 
 # ---------------------------------------------------------------------------
@@ -110,11 +114,22 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def step_scalars(cfg: AdamWConfig, gnorm: torch.Tensor,
+                 step: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The device scalars of the step after ``step``'s increment: the clip
+    factor, the learning rate and the two bias corrections."""
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                        max=1.0)
+    stepf = step.float()
+    return (scale, cfg.schedule(step), 1 - torch.pow(cfg.b1, stepf),
+            1 - torch.pow(cfg.b2, stepf))
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, params, opt_state):
-    """One AdamW step with global-norm clipping, IN PLACE: ``params``, the
-    state's ``m``, ``v`` and ``step``, and ``grads`` (scaled by the clip
-    factor).  ``grads`` and ``params`` are trees of one structure, or
+    """One AdamW step with global-norm clipping, IN PLACE on ``params`` and
+    the state's ``m``, ``v`` and ``step``; ``grads`` are read, not
+    written.  ``grads`` and ``params`` are trees of one structure, or
     lists in :func:`leaves` order.  Returns (params, opt_state, metrics)
     with ``grad_norm`` and ``lr`` as device scalars."""
     flat_g = leaves(grads) if isinstance(grads, dict) else list(grads)
@@ -123,23 +138,8 @@ def adamw_update(cfg: AdamWConfig, grads, params, opt_state):
     step = opt_state["step"]
     step.add_(1)
     gnorm = global_norm(flat_g)
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    lr = cfg.schedule(step)
-    stepf = step.float()
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1 - torch.pow(b1, stepf)
-    bc2 = 1 - torch.pow(b2, stepf)
+    scale, lr, bc1, bc2 = step_scalars(cfg, gnorm, step)
     for g, p, m, v in zip(flat_g, flat_p, flat_m, flat_v):
-        g = g.float().mul_(scale) if g.dtype == torch.float32 \
-            else g.float() * scale
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        pf = p if p.dtype == torch.float32 else p.float()
-        if p.ndim >= 2:   # decoupled weight decay on matrices only
-            delta.add_(pf, alpha=cfg.weight_decay)
-        pf.sub_(delta.mul_(lr))
-        if pf is not p:
-            p.copy_(pf)
+        adamw(g, p, m, v, scale, lr, bc1, bc2, b1=cfg.b1, b2=cfg.b2,
+              eps=cfg.eps, weight_decay=cfg.weight_decay)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -665,6 +665,171 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# AdamW's fused update
+# ---------------------------------------------------------------------------
+#: the kernel against the plain version's CUDA passes: the same f32
+#: operations, as tests/test_torch_training.py holds the plain version to
+#: the reference
+ADAM_TOL = dict(rtol=1e-6, atol=1e-9)
+ADAM_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adam_leaf(rng, shape, device):
+    g, p, m, v = (_randn(rng, shape, torch.float32, device) for _ in range(4))
+    return g * 1e-2, p, m * 1e-3, v.square() * 1e-5
+
+
+def _adam_scalars(device, scale=1.0, lr=1e-3, step=3):
+    return tuple(torch.tensor(x, dtype=torch.float32, device=device) for x in
+                 (scale, lr, 1 - 0.9 ** step, 1 - 0.95 ** step))
+
+
+def _adam_pair(leaf, scalars):
+    """The kernel's update and the plain version's of copies of ``leaf``;
+    returns both results and the kernel's launches."""
+    from repro_torch.kernels import adamw, adamw_plain
+    got, want = ([t.clone() for t in leaf] for _ in range(2))
+    before = adamw.launches
+    adamw(*got, *scalars, **ADAM_HYPER)
+    adamw_plain(*want, *scalars, **ADAM_HYPER)
+    torch.cuda.synchronize()
+    return got, want, adamw.launches - before
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.37])
+@pytest.mark.parametrize("shape", [
+    (4099,),               # a vector: no decay; a length no multiple of 4
+    (40, 2304),            # a stacked (count, d) norm: decayed
+    (3, 1001),             # a matrix whose length is no multiple of 4
+    (2, 3, 333),           # a 3-d leaf, ragged
+    (3,),                  # shorter than one vector
+    (300_000,),            # many blocks
+])
+def test_adamw_kernel_matches_plain(cuda, shape, scale):
+    """p, m and v within ADAM_TOL of the plain version's CUDA passes, at a
+    clip scale of 1 and below it; the gradient is read, not written; one
+    launch."""
+    leaf = _adam_leaf(np.random.default_rng(0), shape, cuda)
+    got, want, launches = _adam_pair(leaf, _adam_scalars(cuda, scale))
+    assert launches == 1
+    assert torch.equal(got[0], leaf[0])          # g left as it was
+    for name, g, w in zip("pmv", got[1:], want[1:]):
+        torch.testing.assert_close(g, w, **ADAM_TOL, msg=name)
+    assert not torch.equal(got[1], leaf[1])
+
+
+def test_adamw_counted_call_launches_the_kernel(cuda):
+    """Under ``FlopCounterMode`` (phase 8's real step) the wrapper goes
+    through the custom op, whose CUDA implementation launches the kernel
+    once, with the eager launch's result; ``OpCost`` counts 28 bytes a
+    parameter."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import adamw
+    from repro_torch.launch import op_cost
+    leaf = _adam_leaf(np.random.default_rng(1), (3, 1001), cuda)
+    scalars = _adam_scalars(cuda, 0.5)
+    got, want = ([t.clone() for t in leaf] for _ in range(2))
+    before = adamw.launches
+    with FlopCounterMode(display=False), op_cost.OpCost() as counter:
+        adamw(*got, *scalars, **ADAM_HYPER)
+    assert adamw.launches == before + 1
+    adamw(*want, *scalars, **ADAM_HYPER)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert counter.cost.bytes == 3 * 1001 * 28
+
+
+def test_adamw_captured_replays_equal_eager_kernel_updates(cuda):
+    """Three replays of a captured update equal three eager kernel updates
+    bit for bit, with the learning rate and the clip scale changed on the
+    device between steps (the kernel reads them through pointers); the
+    capture counts one launch a replay."""
+    from repro_torch.kernels import GraphLaunches, adamw
+    rng = np.random.default_rng(2)
+    leaves = [_adam_leaf(rng, s, cuda) for s in [(3, 1001), (4099,)]]
+    eager = [[t.clone() for t in leaf] for leaf in leaves]
+    graphed = [[t.clone() for t in leaf] for leaf in leaves]
+    scalars = _adam_scalars(cuda)
+    steps = [(1.0, 1e-3), (0.4, 2e-3), (0.9, 5e-4)]
+
+    def update(state):
+        for g, p, m, v in state:
+            adamw(g, p, m, v, *scalars, **ADAM_HYPER)
+
+    for scale, lr in steps:
+        scalars[0].fill_(scale)
+        scalars[1].fill_(lr)
+        update(eager)
+    torch.cuda.synchronize()
+    counts, graph = GraphLaunches(["adamw"]), torch.cuda.CUDAGraph()
+    with counts.capture(), torch.cuda.graph(graph):
+        update(graphed)
+    assert counts.per_replay == {"adamw": 2}
+    before = adamw.launches
+    for scale, lr in steps:
+        scalars[0].fill_(scale)
+        scalars[1].fill_(lr)
+        counts.replay(graph)
+    torch.cuda.synchronize()
+    assert adamw.launches == before + 2 * len(steps)
+    for a, b in zip(eager, graphed):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_adamw_update_launches_the_kernel_once_a_leaf(cuda):
+    """``adamw_update`` on CUDA leaves runs one kernel a leaf and matches
+    the same update through the plain version within ADAM_TOL."""
+    from repro_torch.kernels import adamw, adamw_plain
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      cosine_schedule)
+    from repro_torch.training import optimizer as topt
+    rng = np.random.default_rng(3)
+    shapes = [(16, 8), (8,), (2, 8), (2, 3, 8, 4)]
+    leaves = [_adam_leaf(rng, s, cuda) for s in shapes]
+    cfg = AdamWConfig(schedule=cosine_schedule(1e-2, 2, 20), grad_clip=0.5)
+    states = []
+    for _ in range(2):
+        gs, ps, ms, vs = ([t.clone() for t in col] for col in zip(*leaves))
+        states.append((gs, ps, {"m": ms, "v": vs, "step": torch.tensor(
+            3, dtype=torch.int32, device=cuda)}))
+    before = adamw.launches
+    adamw_update(cfg, *states[0])
+    assert adamw.launches == before + len(shapes)
+    gs, ps, opt = states[1]
+    opt["step"].add_(1)
+    scalars = topt.step_scalars(cfg, topt.global_norm(gs), opt["step"])
+    for g, p, m, v in zip(gs, ps, opt["m"], opt["v"]):
+        adamw_plain(g, p, m, v, *scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                    weight_decay=cfg.weight_decay)
+    torch.cuda.synchronize()
+    for a, b in zip(states[0][1] + states[0][2]["m"] + states[0][2]["v"],
+                    ps + opt["m"] + opt["v"]):
+        torch.testing.assert_close(a, b, **ADAM_TOL)
+
+
+def test_adamw_kernel_refuses_what_it_does_not_take(cuda):
+    """bf16 masters, a non-contiguous leaf, an f64 scalar or a leaf not
+    on 16 bytes raise on the card; nothing falls back to the plain
+    version."""
+    from repro_torch.kernels import adamw
+    g, p, m, v = _adam_leaf(np.random.default_rng(4), (8, 6), cuda)
+    scalars = _adam_scalars(cuda)
+    with pytest.raises(ValueError, match="float32 masters"):
+        adamw(g.bfloat16(), p.bfloat16(), m, v, *scalars, **ADAM_HYPER)
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw(g.t(), p.t(), m.t(), v.t(), *scalars, **ADAM_HYPER)
+    with pytest.raises(ValueError, match="float32 scale"):
+        adamw(g, p, m, v, scalars[0].double(), *scalars[1:], **ADAM_HYPER)
+    unaligned = [torch.cat([torch.zeros(1, device=cuda), t.flatten()])[1:]
+                 for t in (g, p, m, v)]
+    assert unaligned[1].data_ptr() % 16
+    with pytest.raises(ValueError, match="on 16 bytes"):
+        adamw(*unaligned, *scalars, **ADAM_HYPER)
+
+
+# ---------------------------------------------------------------------------
 # the runtime on the card: pinned pulls on the copy stream, kernels on the
 # compute stream after their inputs' events, pushes and spills after the
 # producer's event
@@ -1414,7 +1579,7 @@ def test_graphed_train_step_equals_eager_step(cuda, arch, accum, remat):
     and through a TrainStepGraph replayed on a side stream (as the
     executor's compute stream) after its eager first step.  Losses,
     metrics, params, m, v and step are bit-identical, and each replay
-    advances the six launch counters by the launches of one eager step."""
+    advances the seven launch counters by the launches of one eager step."""
     import repro_torch.kernels as K
     from repro_torch.training import (AdamWConfig, TrainStepGraph,
                                       init_train_state, make_train_step,

@@ -201,6 +201,105 @@ def test_adamw_update_matches_reference_leaf_by_leaf():
     assert torch.equal(tp2["final_norm"], torch.from_numpy(params["final_norm"]))
 
 
+ADAM_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adam_leaf(rng, shape):
+    g, p, m, v = (torch.from_numpy(rng.standard_normal(shape)
+                                   .astype(np.float32)) for _ in range(4))
+    return g * 1e-2, p, m * 1e-3, v.square() * 1e-5
+
+
+def _adam_scalars(scale=0.37, step=3):
+    return tuple(torch.tensor(x, dtype=torch.float32) for x in
+                 (scale, 1e-3, 1 - 0.9 ** step, 1 - 0.95 ** step))
+
+
+@pytest.mark.parametrize("shape", [(13,), (3, 7), (2, 3, 5)])
+def test_adamw_wrapper_takes_the_plain_version_on_the_cpu(shape):
+    """``kernels.adamw`` on CPU tensors is :func:`adamw_plain`, bit for bit
+    (the vector leaf undecayed, the others decayed), reads the gradient
+    without writing it, and counts no launch."""
+    from repro_torch.kernels import adamw, adamw_plain
+    leaf = _adam_leaf(np.random.default_rng(0), shape)
+    got, want = ([t.clone() for t in leaf] for _ in range(2))
+    before = adamw.launches
+    adamw(*got, *_adam_scalars(), **ADAM_HYPER)
+    adamw_plain(*want, *_adam_scalars(), **ADAM_HYPER)
+    assert adamw.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], leaf[0])
+    assert not torch.equal(got[1], leaf[1])
+
+
+@pytest.mark.parametrize("bad", ["g_shape", "g_dtype", "m_shape", "v_dtype",
+                                 "m_device", "scale_size", "lr_float"])
+def test_adamw_wrapper_refuses_mismatched_operands(bad):
+    """Gradient and parameter of one shape and dtype, m and v f32 of that
+    shape, one-element scalar tensors, all on one device: anything else
+    raises before any pass runs."""
+    from repro_torch.kernels import adamw
+    g, p, m, v = _adam_leaf(np.random.default_rng(1), (4, 6))
+    scale, lr, bc1, bc2 = _adam_scalars()
+    if bad == "g_shape":
+        g = g.reshape(6, 4)
+    elif bad == "g_dtype":
+        g = g.double()
+    elif bad == "m_shape":
+        m = m[:3]
+    elif bad == "v_dtype":
+        v = v.double()
+    elif bad == "m_device":
+        m = torch.empty(m.shape, device="meta")
+    elif bad == "scale_size":
+        scale = torch.ones(2)
+    else:
+        lr = 1e-3
+    p0 = p.clone()
+    with pytest.raises(ValueError, match="adamw"):
+        adamw(g, p, m, v, scale, lr, bc1, bc2, **ADAM_HYPER)
+    assert torch.equal(p, p0)
+
+
+def test_adamw_launch_shape():
+    """One block a 256 vectors of four, at most 8 blocks an SM; never
+    none.  The cost formula counts 28 bytes a parameter and no FLOPs."""
+    from repro_torch.kernels.adamw.ops import adamw_blocks, adamw_cost
+    assert adamw_blocks(3, 132) == 1
+    assert adamw_blocks(4 * 256 + 4, 132) == 2
+    assert adamw_blocks(4 * 256 * 5, 132) == 5
+    assert adamw_blocks(530_841_600, 132) == 132 * 8
+    leaf = torch.empty(40, 2304, device="meta")
+    assert adamw_cost(leaf, leaf) == (0, 40 * 2304 * 28)
+
+
+def test_adamw_counted_call_goes_through_the_op():
+    """Under a counting mode the wrapper calls ``repro_torch::adamw`` on
+    any device: on CPU tensors its plain kernel updates the leaf as the
+    plain version does, bit for bit, and ``OpCost`` counts the kernel's
+    28 bytes a parameter; on fake tensors nothing runs and the count is
+    the same."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import adamw, adamw_plain
+    from repro_torch.launch import op_cost
+    leaf = _adam_leaf(np.random.default_rng(2), (3, 7))
+    got, want = ([t.clone() for t in leaf] for _ in range(2))
+    with op_cost.OpCost() as counter:
+        adamw(*got, *_adam_scalars(), **ADAM_HYPER)
+    adamw_plain(*want, *_adam_scalars(), **ADAM_HYPER)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert counter.cost.bytes == 21 * 28
+    assert counter.cost.flops_by_op == {"repro_torch.adamw": 0}
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = [torch.empty(3, 7, device="meta") for _ in range(4)]
+        scalars = [torch.ones((), device="meta") for _ in range(4)]
+        with op_cost.OpCost() as counter:
+            adamw(*fake, *scalars, **ADAM_HYPER)
+    assert counter.cost.bytes == 21 * 28
+
+
 # ---------------------------------------------------------------------------
 # the kernels' backwards (plain versions)
 # ---------------------------------------------------------------------------
@@ -536,7 +635,7 @@ def test_train_step_can_be_captured(arch, accum, remat):
 
 def test_graph_launches_take_back_a_capture_and_add_each_replay():
     """``kernels.GraphLaunches``: what the wrappers count while a graph is
-    captured (a capture launches nothing) is taken back from the six
+    captured (a capture launches nothing) is taken back from the seven
     counters and becomes the graph's launches per replay; each replay of
     the graph (here a stand-in with ``replay()``) adds them."""
     from repro_torch import kernels
@@ -549,7 +648,7 @@ def test_graph_launches_take_back_a_capture_and_add_each_replay():
 
     assert set(kernels.COUNTED) == {
         "flash_attention", "flash_attention_bwd", "decode_attention",
-        "rglru_scan", "rglru_scan_bwd", "moe_gating"}
+        "rglru_scan", "rglru_scan_bwd", "moe_gating", "adamw"}
     start = kernels.launch_counts()
     counts = kernels.GraphLaunches()
     with counts.capture():
