@@ -2,12 +2,14 @@
 PyTorch and CUDA port ``repro_torch``.  The only module of the benchmark
 that imports it; the reference and the yardstick never do.
 
-A configuration file's numbers become the port's ``ModelConfig`` (a
-dense stack of pre-norm attention + SwiGLU layers, the family both
-configurations of this benchmark are), so the file is the configuration
-as run.  Serving is built as ``repro_torch.launch.serve.serve`` builds
-it (an ``Executor`` of two workers over the device, a ``ServingEngine``
-on it); a train step as ``repro_torch.launch.train.train`` builds it
+A configuration file's numbers become the port's ``ModelConfig``, so
+the file is the configuration as run: its widths, its layer stack (the
+``layers`` groups of mixers and feed-forwards; one dense attention group
+where it has none) and its ``moe``, ``mla`` and ``rec`` settings, each
+laid over the port's own (``perfbench/README.md`` lists the keys).
+Serving is built as ``repro_torch.launch.serve.serve`` builds it (an
+``Executor`` of two workers over the device, a ``ServingEngine`` on it);
+a train step as ``repro_torch.launch.train.train`` builds it
 (``make_train_step`` with AdamW, wrapped in a ``TrainStepGraph`` on the
 card).
 """
@@ -25,24 +27,32 @@ from repro_torch.training import (AdamWConfig, TrainStepGraph,
                                   make_train_step, wsd_schedule)
 from repro_torch.training.optimizer import init_opt_state
 
+from . import costs
+
 __all__ = ["Executor", "Heteroflow", "Pipeline", "PipelineConfig",
            "build_kernels", "engine", "model_config", "opt_state",
            "train_step"]
 
 
-#: the one layer group this module builds: pre-norm attention + SwiGLU
-DENSE = LayerGroup(pattern=("attn",), count=1, ffn="dense")
-
-
 def model_config(c: dict):
-    """The port's ``ModelConfig`` of configuration file ``c``; raises for
-    an architecture whose port is not the dense stack built here."""
+    """The port's ``ModelConfig`` of configuration file ``c``: the port's
+    config of ``c["arch"]`` with the file's widths, its layer groups and
+    its ``moe``, ``mla`` and ``rec`` dicts laid over the port's (a key the
+    port lacks raises its ``TypeError``).  Raises, naming the group, for
+    a stack the yardstick cannot count (``costs.check``), and where
+    ``n_layers`` is not the groups' layers."""
+    held = costs.check(c)
+    if held != c["n_layers"]:
+        raise ValueError(f"{c['arch']}: n_layers {c['n_layers']}, but its "
+                         f"layer groups hold {held}")
+    groups = tuple(
+        LayerGroup(**dict(g, pattern=tuple(g["pattern"]),
+                          ffn=(g["ffn"] if isinstance(g["ffn"], str)
+                               else tuple(g["ffn"]))))
+        for g in costs.layers(c))
     base = get_config(c["arch"])
-    if any((g.pattern, g.ffn) != (DENSE.pattern, DENSE.ffn)
-           for g in base.groups):
-        raise ValueError(
-            f"{c['arch']}: the port's layer groups {base.groups} are not a "
-            f"dense attention stack; this module builds only that")
+    nested = {k: dataclasses.replace(getattr(base, k), **c[k])
+              for k in ("moe", "mla", "rec") if k in c}
     return dataclasses.replace(
         base, d_model=c["d_model"], n_heads=c["n_heads"],
         n_kv_heads=c["n_kv_heads"], d_ff=c["d_ff"],
@@ -50,7 +60,7 @@ def model_config(c: dict):
         rope_theta=c["rope_theta"], norm_eps=c["norm_eps"],
         tie_embeddings=c["tie_embeddings"],
         compute_dtype=c["compute_dtype"], param_dtype=c["param_dtype"],
-        groups=(dataclasses.replace(DENSE, count=c["n_layers"]),))
+        groups=groups, **nested)
 
 
 def build_kernels(names, device) -> dict:

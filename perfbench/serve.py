@@ -49,6 +49,7 @@ class Clients:
         self.eng, self.config, self.mix, self.reqs = eng, config, mix, reqs
         self.seconds, self.spans, self.prof = seconds, spans, profiler
         self.clock = clock
+        self.token_flops = costs.token_flops(config)
         self.closed = mix["kind"] == "closed_loop"
         self.sent: dict[int, dict] = {}     # engine id -> due, sent, index
         self.next_req = 0
@@ -123,8 +124,7 @@ class Clients:
             del stamps[n:]
             for k in range(seen, n):
                 self.flops += (costs.prompt_flops(c, L) if k == 0 else
-                               costs.forward_token_flops(c, L + k - 1,
-                                                         head=True))
+                               self.token_flops(L + k - 1, head=True))
                 stamps.append(now)
             rec[1] = n
 

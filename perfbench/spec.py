@@ -9,6 +9,27 @@
 
 A later cell, mix or metric is a new file and a new entry; no file here
 needs an edit for it.
+
+A configuration file holds the port's architecture (``arch``), its
+widths (``d_model``, ``n_layers``, ``n_heads``, ``n_kv_heads``,
+``head_dim``, ``d_ff``, ``vocab_size``, ``rope_theta``, ``norm_eps``,
+``tie_embeddings``), its dtypes, its reference's name and its
+deployment (``serve`` or ``train``).  These keys are optional:
+
+- ``layers``: the layer stack, a list of ``{"pattern": [mixer, ...],
+  "count": n, "ffn": "dense" | "moe" | [one a mixer]}`` in the
+  port's ``Mixer`` and ``FFN`` names, the groups' layers summing to
+  ``n_layers``; without it, ``n_layers`` dense attention layers;
+- ``moe``, ``mla``, ``rec``: laid over the port's ``MoEConfig``,
+  ``MLAConfig`` and ``RecurrentConfig`` with ``dataclasses.replace``,
+  so a key the port lacks raises its ``TypeError``; ``moe.experts_held``
+  (the routed experts this chip holds; all where absent) is what the
+  yardstick counts a token's routed work by;
+- ``tiny``: the keys the CPU tests lay over the file to run it at a
+  tiny size, where the tests' dense ``SMALL`` will not do.
+
+:mod:`perfbench.program` builds the port's config from them, and
+:mod:`perfbench.costs` counts the stack's FLOPs from the same keys.
 """
 from __future__ import annotations
 

@@ -17,6 +17,7 @@ from perfbench import harness, program, spec
 from perfbench.tests.conftest import ROOT
 
 BENCH = spec.load()
+#: the tiny size of a dense configuration; a file's ``tiny`` takes its place
 SMALL = dict(d_model=64, n_layers=2, n_heads=4, n_kv_heads=4, head_dim=16,
              d_ff=128, vocab_size=256)
 TINY_TRAFFIC = {
@@ -43,7 +44,7 @@ TINY_LIMITS = {"widest_logit_gap": {"limit": 0.05},
 
 def tiny(workload: str, **over) -> spec.Cell:
     cell = spec.cell(BENCH, workload)
-    c = {**cell.config, **SMALL}
+    c = {**cell.config, **cell.config.get("tiny", SMALL)}
     if "serve" in c:
         c["serve"] = dict(c["serve"], slots=2, max_seq=128)
     t = {**cell.traffic, **TINY_TRAFFIC[cell.traffic["kind"]], **over}

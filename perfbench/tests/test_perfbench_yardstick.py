@@ -1,5 +1,6 @@
 """The generator, the statistics, the frozen cost formulas and the
 metric readers' arithmetic, on the CPU."""
+import json
 import math
 import statistics
 
@@ -149,18 +150,29 @@ def test_the_frozen_costs_equal_the_programs(B, Sq, Sk, H, K, D, off, dtype):
                                        elem=e) == dec(qd, k, k, vl, rows=rows)
 
 
+def _config_file(name: str) -> dict:
+    """The configuration file of ``name``: a cell's, or a test file's."""
+    bench = spec.load()
+    workload = next((w["name"] for w in bench["workloads"]
+                     if w["config"] == name), None)
+    if workload is not None:
+        return spec.cell(bench, workload).config
+    return json.loads((spec.HERE / "tests" / "data" / f"{name}.json")
+                      .read_text())
+
+
 @pytest.mark.parametrize("name,B,S", [("phi3-mini-3.8b", 2, 256),
                                       ("minicpm-2b", 1, 4096),
-                                      ("minicpm-2b", 8, 512)])
+                                      ("minicpm-2b", 8, 512),
+                                      ("deepseek-v2-236b", 1, 4096)])
 def test_the_frozen_model_flops_equal_chip_smokes(name, B, S):
     import chip_smoke
     from repro_torch.configs import get_config
-    c = spec.cell(spec.load(), next(
-        w["name"] for w in spec.load()["workloads"]
-        if w["config"] == name)).config
+    c = _config_file(name)
     cfg = get_config(c["arch"])
-    n_matmul = cfg.param_count() - (0 if cfg.tie_embeddings
-                                    else cfg.vocab_size * cfg.d_model)
+    # the parameters a token runs through (all of them in a dense stack)
+    n_matmul = cfg.active_param_count() - (
+        0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
     assert costs.param_count(c) == cfg.param_count()
     assert costs.train_step_flops(c, B, S) == \
         chip_smoke._model_flops(cfg, B, S, n_matmul)[0]
