@@ -731,9 +731,11 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
     """llama4's routing (E 128, top-1) at a decode step and a 512-token
     prefill, deepseek-v2's (E 160, top-6) over 4096 tokens at a capacity
     that drops entries and at its serving path's decode step (C 8) and
-    512-token prefill (C 24), and tied logits.  eids, slots and keep must equal
-    the plain version's; gates within 1e-6.  No single PyTorch call
-    computes the routing, so library_ms is null."""
+    512-token prefill (C 24), and tied logits; then deepseek-v2's
+    published routing in the dropless mode at 1, 1024 and 8192 tokens.
+    eids, slots (rows) and keep (and ends) must equal the plain
+    version's; gates within 1e-6.  No single PyTorch call computes the
+    routing, so library_ms is null."""
     from repro_torch.kernels import moe_gating, moe_gating_plain
     from repro_torch.kernels.moe_gating.ops import (gating_launch_shape,
                                                     max_cluster_blocks,
@@ -776,6 +778,36 @@ def _gating_cases(torch, dev, randn, flush) -> dict:
               f"{row['plain_ms']} None {bound} {bound_by}")
         if name == "llama4 prefill":
             chosen["moe_gating"] = row
+    # the published DeepSeek-V2 routing (8 groups of 20, 3 kept, gates x16)
+    # in the dropless mode, chip 0 of 8 holding experts 0-19: a decode
+    # step, a 1024-token and an 8192-token prefill
+    from repro_torch.kernels.moe_gating.ops import (
+        moe_gating_dropless, moe_gating_dropless_plain)
+    opts = dict(top_k=6, held=20, n_groups=8, topk_groups=3,
+                renormalize=False, scale=16.0)
+    for T in (1, 1024, 8192):
+        logits = randn((T, 160), torch.float32) * 3
+        got = moe_gating_dropless(logits, **opts)
+        want = moe_gating_dropless_plain(logits, **opts)
+        for g, w, what in zip(got, want, ("eids", "gates", "rows", "keep",
+                                          "ends")):
+            err = float((g.float() - w.float()).abs().max())
+            if err > (1e-6 if what == "gates" else 0.0):
+                raise AssertionError(f"moe_gating_dropless T={T}: {what} "
+                                     f"differ from the plain version by "
+                                     f"{err}")
+        bound, bound_by = _bounds(*moe_gating_cost(
+            logits, 6, 0, 8, 3, dropless=True), "float32")
+        ms = _median_ms(torch, lambda: moe_gating_dropless(logits, **opts),
+                        flush)
+        plain_ms = _median_ms(torch, lambda: moe_gating_dropless_plain(
+            logits, **opts), flush)
+        nb, threads = gating_launch_shape(T, max_cluster_blocks())
+        print(f"  moe_gating deepseek-v2 published routing, dropless, held "
+              f"20: T={T} E=160 k=6 ({nb} blocks of {threads} threads): "
+              f"eids/rows/keep/ends identical, {int(got[3].sum())} entries "
+              f"held, gates err {float((got[1] - want[1]).abs().max())} "
+              f"(tol 1e-6) {ms} {plain_ms} None {bound} {bound_by}")
     return chosen
 
 

@@ -9,7 +9,7 @@ model builder (`models/transformer.py`), the sharding rules
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, field
+from dataclasses import InitVar, dataclass, field
 from typing import Literal
 
 Mixer = Literal["attn", "attn_local", "mla", "rglru", "mlstm", "slstm"]
@@ -40,8 +40,69 @@ class LayerGroup:
         return len(self.pattern) * self.count
 
 
+def _keep(obj, names: tuple, values: tuple) -> None:
+    """Set a frozen dataclass's init-only settings as attributes."""
+    for name, value in zip(names, values):
+        object.__setattr__(obj, name, value)
+
+
+def _with_settings(names: tuple):
+    """Class decorator, under ``@dataclass``: ``==``, ``hash`` and ``repr``
+    over the fields and the init-only settings ``names`` alike (the
+    generated ones would see the fields only)."""
+    def key(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self)
+                     ) + tuple(getattr(self, n) for n in names)
+
+    def __eq__(self, other):
+        if other.__class__ is not self.__class__:
+            return NotImplemented
+        return key(self) == key(other)
+
+    def __hash__(self):
+        return hash(key(self))
+
+    def __repr__(self):
+        items = [f.name for f in dataclasses.fields(self)] + list(names)
+        return "%s(%s)" % (type(self).__name__, ", ".join(
+            f"{n}={getattr(self, n)!r}" for n in items))
+
+    def wrap(cls):
+        cls.__eq__, cls.__hash__, cls.__repr__ = __eq__, __hash__, __repr__
+        return cls
+    return wrap
+
+
+#: the MoE and MLA settings of DeepSeek-V2's published model that the
+#: reference package's configs lack: init-only (``InitVar``), kept on the
+#: instance as attributes and not as fields, so that a config's fields,
+#: and so ``dataclasses.asdict``, stay the reference's one for one
+#: (``tests/test_torch_models.py`` holds them so).  ``==``, ``hash`` and
+#: ``repr`` see them; ``dataclasses.replace`` carries them over unless
+#: given anew
+MOE_SETTINGS = ("experts_held", "n_groups", "topk_groups", "renormalize",
+                "routed_scale", "dropless")
+MLA_SETTINGS = ("latent_norms", "yarn_factor", "yarn_original_max",
+                "yarn_beta_fast", "yarn_beta_slow", "yarn_mscale",
+                "yarn_mscale_all_dim")
+
+
 @dataclass(frozen=True)
+@_with_settings(MOE_SETTINGS)
 class MoEConfig:
+    """Routed and shared experts.  By default routing is the reference's:
+    softmax, top-k over every expert, renormalised gates, a capacity per
+    expert.  DeepSeek-V2's published routing sets ``n_groups`` /
+    ``topk_groups`` (group-limited: a token's experts come from its
+    ``topk_groups`` best groups of ``n_experts / n_groups``),
+    ``renormalize`` False and ``routed_scale`` (its gates are the probs
+    times the routed scaling factor).  ``experts_held`` (0 = all) is the
+    routed experts this device holds of an expert-parallel layer,
+    experts 0..held-1: the router still scores all ``n_experts``, and an
+    entry routed elsewhere adds nothing here.  ``dropless`` routes every
+    entry (no capacity; the published model's inference) with products
+    grouped over the held experts; a held share needs it.  These six are
+    :data:`MOE_SETTINGS`, init-only."""
     n_experts: int = 0            # routed experts
     top_k: int = 1
     n_shared: int = 0             # always-on shared experts
@@ -49,15 +110,64 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
     aux_loss_coef: float = 0.001
+    experts_held: InitVar[int] = 0        # 0 = every routed expert
+    n_groups: InitVar[int] = 1
+    topk_groups: InitVar[int] = 1
+    renormalize: InitVar[bool] = True
+    routed_scale: InitVar[float] = 1.0    # gate scale where not renormalised
+    dropless: InitVar[bool] = False
+
+    def __post_init__(self, *settings):
+        _keep(self, MOE_SETTINGS, settings)
+
+    @property
+    def held(self) -> int:
+        """The routed experts this device holds."""
+        return self.experts_held or self.n_experts
 
 
 @dataclass(frozen=True)
+@_with_settings(MLA_SETTINGS)
 class MLAConfig:
+    """Latent attention.  ``latent_norms``: RMSNorms on the q latent and
+    the kv latent (DeepSeek-V2's ``q_a_layernorm`` / ``kv_a_layernorm``;
+    the cache holds the normed kv latent).  ``yarn_factor`` > 1 turns the
+    rope part into YaRN (DeepSeek-V2's ``rope_scaling``): frequencies
+    blended between interpolated and extrapolated over the correction
+    range of ``yarn_beta_fast``/``yarn_beta_slow`` rotations in
+    ``yarn_original_max`` positions, cos and sin scaled by mscale(factor,
+    ``yarn_mscale``) / mscale(factor, ``yarn_mscale_all_dim``), and the
+    softmax scale by mscale(factor, ``yarn_mscale_all_dim``)².  These
+    seven are :data:`MLA_SETTINGS`, init-only."""
     kv_lora_rank: int = 512
     q_lora_rank: int = 0          # 0 = no q compression
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+    latent_norms: InitVar[bool] = False
+    yarn_factor: InitVar[float] = 1.0     # 1 = plain RoPE
+    yarn_original_max: InitVar[int] = 4096
+    yarn_beta_fast: InitVar[float] = 32.0
+    yarn_beta_slow: InitVar[float] = 1.0
+    yarn_mscale: InitVar[float] = 1.0
+    yarn_mscale_all_dim: InitVar[float] = 0.0
+
+    def __post_init__(self, *settings):
+        _keep(self, MLA_SETTINGS, settings)
+
+
+def as_moe(m) -> MoEConfig:
+    """``m`` as a :class:`MoEConfig`: itself, or the reference package's
+    config (which tests hand the port) with its fields and the default
+    settings."""
+    return m if isinstance(m, MoEConfig) else MoEConfig(
+        **dataclasses.asdict(m))
+
+
+def as_mla(m) -> MLAConfig:
+    """``m`` as an :class:`MLAConfig`, as :func:`as_moe`."""
+    return m if isinstance(m, MLAConfig) else MLAConfig(
+        **dataclasses.asdict(m))
 
 
 @dataclass(frozen=True)
@@ -122,7 +232,10 @@ class ModelConfig:
         return n
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: top-k + shared experts only)."""
+        """Active params per token (MoE: the router, the shared experts and
+        top-k routed experts; on a device that holds ``experts_held`` of
+        them, the ``top_k · held / n_experts`` it runs on average, rounded
+        down in parameters)."""
         d = self.d_model
         n = self.vocab_size * d
         if not self.tie_embeddings:
@@ -133,9 +246,11 @@ class ModelConfig:
                 per_block += _mixer_params(self, mixer)
                 f = g.ffn_of(i)
                 if f == "moe":
-                    e = 3 * d * self.moe.d_ff_expert
-                    per_block += e * (self.moe.top_k + self.moe.n_shared)
-                    per_block += d * self.moe.n_experts  # router
+                    m = as_moe(self.moe)
+                    e = 3 * d * m.d_ff_expert
+                    per_block += e * m.n_shared
+                    per_block += e * m.top_k * m.held // m.n_experts
+                    per_block += d * m.n_experts  # router
                 elif f == "dense":
                     per_block += 3 * d * self.d_ff
                 per_block += d + (d if f != "none" else 0)

@@ -1,5 +1,7 @@
 // Fused MoE gating for NVIDIA Hopper (sm_90a): router softmax, top-k,
-// renormalised gates and first-come-first-served capacity slots.
+// renormalised gates and first-come-first-served capacity slots; or, in
+// its dropless mode, the published DeepSeek-V2 routing and every entry's
+// row in expert-sorted order.
 //
 // Replaces the Pallas TPU kernel `moe_gating_fwd`
 // (src/repro/kernels/moe_gating/kernel.py, pl.pallas_call in
@@ -43,9 +45,30 @@
 //   same every run.  A last cluster barrier keeps each block's histogram
 //   alive until every block has read it.
 //
+// Routing options (both modes).  Group-limited routing (n_groups > 1,
+// DeepSeek-V2's `group_limited_greedy`): the experts fall into n_groups
+// groups of E / n_groups in index order, a group's score is the largest
+// prob of its experts, the topk_groups best groups are kept (the lower
+// group first on ties) and the top k are taken among their experts alone.
+// Without renorm the gate is the prob times `scale` (the routed scaling
+// factor), not renormalised.  n_groups = 1 with renorm is the mode above,
+// bit for bit.
+//
+// Dropless mode (C = 0): no entry is dropped.  After pass 1 every block
+// reads every block's histogram, so each knows all the experts' totals;
+// warp 0 scans them into each expert's first row, and pass 2 hands out
+// rows from there, first come, first served as above: slot = the entry's
+// row in expert-sorted order (experts ascending, (token, k) order within
+// one), keep = expert < held (the experts this device holds are 0..held-1,
+// so their rows come first), and block 0 writes ends[e], the end of expert
+// e's rows (the inclusive prefix of the totals): what a grouped product
+// over the held experts takes as its offsets.
+//
 // Layout: logits (T, E) contiguous float32; eids, slots (T, k) int32,
-// gates (T, k) float32, keep (T, k) bytes 0/1, all contiguous.  E <= 256,
-// 1 <= k <= min(E, 8).
+// gates (T, k) float32, keep (T, k) bytes 0/1, all contiguous; ends (E,)
+// int32 (dropless mode only).  E <= 256, 1 <= k <= min(E, 8); n_groups <=
+// 32 divides E, 1 <= topk_groups <= n_groups, k <= topk_groups · E /
+// n_groups.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -73,7 +96,9 @@ __device__ __forceinline__ void cluster_wait() {
 // 32·i (-inf past E).  Lanes < k return their entry's expert and gate.
 template <int PL>
 __device__ __forceinline__ void route(float (&p)[PL], int lane, int E, int k,
-                                      int& my_eid, float& my_gate) {
+                                      int n_groups, int topk_groups,
+                                      bool renorm, float scale, int& my_eid,
+                                      float& my_gate) {
   float mx = -INFINITY;
 #pragma unroll
   for (int i = 0; i < PL; ++i) mx = fmaxf(mx, p[i]);
@@ -94,6 +119,46 @@ __device__ __forceinline__ void route(float (&p)[PL], int lane, int E, int k,
 #pragma unroll
   for (int i = 0; i < PL; ++i)
     p[i] = lane + 32 * i < E ? p[i] / sum : -1.f;  // -1: never chosen
+
+  if (n_groups > 1) {
+    // lane g holds group g's score (the max of its probs, exact in any
+    // order); the best topk_groups groups are kept, the lower on ties
+    const int gs = E / n_groups;
+    float my_score = -2.f;  // lanes past the groups: never kept
+    for (int g = 0; g < n_groups; ++g) {
+      float m = -2.f;
+#pragma unroll
+      for (int i = 0; i < PL; ++i) {
+        const int e = lane + 32 * i;
+        if (e >= g * gs && e < (g + 1) * gs) m = fmaxf(m, p[i]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == g) my_score = m;
+    }
+    unsigned kept = 0u;
+    for (int j = 0; j < topk_groups; ++j) {
+      float bv = my_score;
+      int bi = lane;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (ov > bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      kept |= 1u << bi;
+      if (lane == bi) my_score = -3.f;  // taken
+    }
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      const int e = lane + 32 * i;
+      if (e < E && !((kept >> (e / gs)) & 1u)) p[i] = -1.f;
+    }
+  }
 
   float top_sum = 0.f, my_prob = 0.f;
   my_eid = 0;
@@ -125,21 +190,23 @@ __device__ __forceinline__ void route(float (&p)[PL], int lane, int E, int k,
     for (int i = 0; i < PL; ++i)
       if (lane + 32 * i == bi) p[i] = -1.f;
   }
-  my_gate = my_prob / fmaxf(top_sum, 1e-9f);
+  my_gate = renorm ? my_prob / fmaxf(top_sum, 1e-9f) : my_prob * scale;
 }
 
 // PL: experts per lane (E <= 32·PL).  Grid: nb blocks, one cluster.
 template <int PL>
 __global__ void __launch_bounds__(MAX_THREADS)
     gating_kernel(const float* __restrict__ logits, int T, int E, int k,
-                  int C, int* eids, float* gates, int* slots,
-                  unsigned char* keep) {
+                  int C, int n_groups, int topk_groups, bool renorm,
+                  float scale, int held, int* eids, float* gates, int* slots,
+                  unsigned char* keep, int* ends) {
   // tokens whose loads a warp issues before it routes the first of them
   // (16 registers of logits a lane: 1024 threads leave 64 each)
   constexpr int G = 16 / PL < 8 ? 16 / PL : 8;
   __shared__ int warp_count[MAX_WARPS][MAX_E];  // this tile's entries
   __shared__ int hist[MAX_E];     // this block's entries per expert
   __shared__ int running[MAX_E];  // entries before this tile
+  __shared__ int first[MAX_E];    // dropless: each expert's first row
   const int nb = gridDim.x, rank = blockIdx.x;
   const int threads = blockDim.x, W = threads / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -169,7 +236,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
       if (t >= t_end) break;  // uniform over the warp
       int my_eid;
       float my_gate;
-      route<PL>(p[g], lane, E, k, my_eid, my_gate);
+      route<PL>(p[g], lane, E, k, n_groups, topk_groups, renorm, scale,
+                my_eid, my_gate);
       if (lane < k) {
         eids[(long long)t * k + lane] = my_eid;
         gates[(long long)t * k + lane] = my_gate;
@@ -180,19 +248,58 @@ __global__ void __launch_bounds__(MAX_THREADS)
   __syncthreads();  // hist complete; pass 1's eids seen by the block
 
   // offsets: the entries of the lower-ranked blocks, added in rank order
+  // (dropless: every block's, for the totals)
   cg::cluster_group cluster = cg::this_cluster();
   if (nb > 1) {
     cluster_arrive();
     cluster_wait();  // every block's hist is complete
   }
+  const bool dropless = C == 0;
   for (int e = threadIdx.x; e < E; e += threads) {
-    int off = 0;
-    for (int r = 0; r < rank; ++r)
-      off += *cluster.map_shared_rank(hist + e, r);
+    int off = 0, total = 0;
+    for (int r = 0; r < (dropless ? nb : rank); ++r) {
+      const int n =
+          r == rank ? hist[e] : *cluster.map_shared_rank(hist + e, r);
+      if (r < rank) off += n;
+      total += n;
+    }
     running[e] = off;
+    first[e] = total;
   }
   if (nb > 1) cluster_arrive();  // this block is done with the others' hist
   __syncthreads();
+  if (dropless) {
+    // warp 0 turns the totals into each expert's first row: 8 experts a
+    // lane, then a scan across the lanes
+    if (warp == 0) {
+      int n[MAX_E / 32], sum = 0;
+#pragma unroll
+      for (int j = 0; j < MAX_E / 32; ++j) {
+        const int e = (MAX_E / 32) * lane + j;
+        n[j] = e < E ? first[e] : 0;
+        sum += n[j];
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += o;
+      }
+      int row = incl - sum;
+#pragma unroll
+      for (int j = 0; j < MAX_E / 32; ++j) {
+        const int e = (MAX_E / 32) * lane + j;
+        if (e < E) {
+          first[e] = row;
+          row += n[j];
+          if (rank == 0) ends[e] = row;
+        }
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < E; e += threads) running[e] += first[e];
+    __syncthreads();
+  }
 
   // pass 2: first-come-first-served positions over this block's entries
   const long long n_begin = (long long)t_begin * k;
@@ -208,9 +315,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (e >= 0) {
       int pos = running[e] + __popc(peers & earlier_lanes);
       for (int w = 0; w < warp; ++w) pos += warp_count[w][e];
-      const bool kept = pos < C;
-      slots[n] = e * C + (kept ? pos : 0);
-      keep[n] = kept ? 1 : 0;
+      if (dropless) {
+        slots[n] = pos;
+        keep[n] = e < held ? 1 : 0;
+      } else {
+        const bool kept = pos < C;
+        slots[n] = e * C + (kept ? pos : 0);
+        keep[n] = kept ? 1 : 0;
+      }
     }
     if (n0 + threads >= n_end) break;  // the last tile: nothing to carry
     __syncthreads();
@@ -230,8 +342,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 template <int PL>
 int launch(const float* logits, int* eids, float* gates, int* slots,
-           unsigned char* keep, int T, int E, int k, int C, int nb,
-           int threads, cudaStream_t stream) {
+           unsigned char* keep, int* ends, int T, int E, int k, int C,
+           int n_groups, int topk_groups, bool renorm, float scale,
+           int held, int nb, int threads, cudaStream_t stream) {
   auto kernel = gating_kernel<PL>;
   if (nb > PORTABLE_BLOCKS) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -239,8 +352,9 @@ int launch(const float* logits, int* eids, float* gates, int* slots,
     if (err != cudaSuccess) return int(err);
   }
   if (nb == 1) {
-    kernel<<<1, threads, 0, stream>>>(logits, T, E, k, C, eids, gates, slots,
-                                      keep);
+    kernel<<<1, threads, 0, stream>>>(logits, T, E, k, C, n_groups,
+                                      topk_groups, renorm, scale, held, eids,
+                                      gates, slots, keep, ends);
     return int(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
@@ -255,8 +369,10 @@ int launch(const float* logits, int* eids, float* gates, int* slots,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, logits, T, E, k, C, eids,
-                                       gates, slots, keep);
+  cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, logits, T, E, k, C, n_groups,
+                         topk_groups, renorm, scale, held, eids, gates, slots,
+                         keep, ends);
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }
@@ -297,28 +413,31 @@ int max_blocks() {
 }  // namespace
 
 // nb, threads: the launch shape the wrapper picked (blocks in the one
-// cluster, threads per block).  Returns a cudaError_t (0 = launched), or
-// -1 for arguments the kernel does not take.
+// cluster, threads per block).  C = 0: the dropless mode (ends written).
+// Returns a cudaError_t (0 = launched), or -1 for arguments the kernel
+// does not take.
 extern "C" int moe_gating_fwd(const float* logits, int* eids, float* gates,
-                              int* slots, unsigned char* keep, int T, int E,
-                              int k, int C, int nb, int threads,
-                              void* stream) {
+                              int* slots, unsigned char* keep, int* ends,
+                              int T, int E, int k, int C, int n_groups,
+                              int topk_groups, int renorm, float scale,
+                              int held, int nb, int threads, void* stream) {
   if (T <= 0 || E <= 0 || E > MAX_E || k <= 0 || k > MAX_K || k > E ||
-      C <= 0 || nb < 1 || nb > max_blocks() || threads < 32 ||
-      threads > MAX_THREADS || threads % 32)
+      C < 0 || (C == 0 && (ends == nullptr || held < 0 || held > E)) ||
+      n_groups < 1 || n_groups > 32 || E % n_groups || topk_groups < 1 ||
+      topk_groups > n_groups || k > topk_groups * (E / n_groups) || nb < 1 ||
+      nb > max_blocks() || threads < 32 || threads > MAX_THREADS ||
+      threads % 32)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E <= 32)
-    return launch<1>(logits, eids, gates, slots, keep, T, E, k, C, nb,
-                     threads, s);
-  if (E <= 64)
-    return launch<2>(logits, eids, gates, slots, keep, T, E, k, C, nb,
-                     threads, s);
-  if (E <= 128)
-    return launch<4>(logits, eids, gates, slots, keep, T, E, k, C, nb,
-                     threads, s);
-  return launch<8>(logits, eids, gates, slots, keep, T, E, k, C, nb, threads,
-                   s);
+  const bool rn = renorm != 0;
+#define GATING_LAUNCH(PL)                                                   \
+  launch<PL>(logits, eids, gates, slots, keep, ends, T, E, k, C, n_groups, \
+             topk_groups, rn, scale, held, nb, threads, s)
+  if (E <= 32) return GATING_LAUNCH(1);
+  if (E <= 64) return GATING_LAUNCH(2);
+  if (E <= 128) return GATING_LAUNCH(4);
+  return GATING_LAUNCH(8);
+#undef GATING_LAUNCH
 }
 
 // The most blocks the wrapper may give one cluster on the current card.

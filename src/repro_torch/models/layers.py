@@ -23,6 +23,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..configs.base import as_mla
 from ..distributed.context import (constrain, decode_shard_info,
                                    decode_tp_active, merge_heads,
                                    split_heads, write_row)
@@ -67,6 +68,58 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scaling of a context extended by ``factor``:
+    0.1·mscale·ln(factor) + 1, and 1 where ``factor`` <= 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(dim: int, theta: float, beta_fast: float,
+                          beta_slow: float, original_max: int
+                          ) -> tuple[int, int]:
+    """(low, high): the frequency pairs between which YaRN blends from
+    extrapolation to interpolation, where a pair turns ``beta_fast`` and
+    ``beta_slow`` times over ``original_max`` positions (floor and ceil,
+    clamped to [0, dim - 1]; DeepSeek-V2's ``yarn_find_correction_range``)."""
+    def pair(rotations: float) -> float:
+        return (dim * math.log(original_max / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(pair(beta_fast)), 0),
+            min(math.ceil(pair(beta_slow)), dim - 1))
+
+
+def yarn_freqs(m, dim: int, theta: float, device=None) -> torch.Tensor:
+    """The (dim/2,) inverse frequencies of YaRN for MLA config ``m``:
+    f_interp·(1 − mask) + f_extra·mask, f_extra the plain RoPE frequencies,
+    f_interp = f_extra / factor, mask = 1 − clamp((i − low) / (high − low),
+    0, 1) over the correction range."""
+    low, high = yarn_correction_range(dim, theta, m.yarn_beta_fast,
+                                      m.yarn_beta_slow, m.yarn_original_max)
+    if low == high:
+        high += 0.001                 # the published guard
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra = 1.0 / (theta ** exps)
+    interp = 1.0 / (m.yarn_factor * theta ** exps)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    mask = 1.0 - ramp
+    return interp * (1.0 - mask) + extra * mask
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor,
+            mscale: float = 1.0) -> torch.Tensor:
+    """``x`` (B, S, H, D) turned by ``angles`` (B, S, D/2), split halves;
+    cos and sin scaled by ``mscale`` where it is not 1."""
+    cos = torch.cos(angles)[..., None, :]                       # (B,S,1,D/2)
+    sin = torch.sin(angles)[..., None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                m_rope_sections: tuple[int, ...] = ()) -> torch.Tensor:
     """Rotate ``x`` (B, S, H, D) by ``positions``: split-half rotation
@@ -95,11 +148,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
         if positions.dim() == 3:
             positions = positions[0]
         angles = positions[..., None].float() * freqs           # (B,S,D/2)
-    cos = torch.cos(angles)[..., None, :]                       # (B,S,1,D/2)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, angles)
+
+
+def mla_rope(cfg, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """MLA's rope part ``x`` (B, S, H, D) turned by ``positions`` (B, S):
+    :func:`apply_rope`, or YaRN where ``cfg.mla.yarn_factor`` > 1 (split
+    halves either way)."""
+    m = as_mla(cfg.mla)
+    if m.yarn_factor <= 1:
+        return apply_rope(x, positions, cfg.rope_theta)
+    if positions.dim() == 3:
+        positions = positions[0]
+    freqs = yarn_freqs(m, x.shape[-1], cfg.rope_theta, x.device)
+    mscale = (yarn_mscale(m.yarn_factor, m.yarn_mscale)
+              / yarn_mscale(m.yarn_factor, m.yarn_mscale_all_dim))
+    return _rotate(x, positions[..., None].float() * freqs, mscale)
+
+
+def mla_softmax_scale(m) -> float:
+    """MLA's softmax scale: 1/sqrt(nope + rope), times
+    mscale(factor, ``yarn_mscale_all_dim``)² under YaRN where that is
+    set (DeepSeek-V2's)."""
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    if m.yarn_factor > 1 and m.yarn_mscale_all_dim:
+        scale *= yarn_mscale(m.yarn_factor, m.yarn_mscale_all_dim) ** 2
+    return scale
 
 
 # ---------------------------------------------------------------------------
@@ -321,8 +395,10 @@ def init_mla(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
     """MLA weights stacked over ``count`` layers, with the reference's
     keys: the kv down-projection ``w_dkv`` and shared rope key
     ``w_krope``, the up-projections ``w_uk``/``w_uv``, ``wo``, and q
-    through ``w_dq``/``w_uq`` (q_lora_rank > 0) or ``wq``."""
-    m = cfg.mla
+    through ``w_dq``/``w_uq`` (q_lora_rank > 0) or ``wq``; with
+    ``latent_norms`` the latents' RMSNorm scales ``kv_norm`` and (with a
+    q latent) ``q_norm``, zeros as every norm's."""
+    m = as_mla(cfg.mla)
     d, H = cfg.d_model, cfg.n_heads
     qd = m.qk_nope_dim + m.qk_rope_dim
     dt = getattr(torch, cfg.param_dtype)
@@ -342,6 +418,12 @@ def init_mla(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
         p["w_uq"] = w((m.q_lora_rank, H * qd))
     else:
         p["wq"] = w((d, H * qd))
+    if m.latent_norms:
+        p["kv_norm"] = torch.zeros((count, m.kv_lora_rank), dtype=dt,
+                                   device=device)
+        if m.q_lora_rank:
+            p["q_norm"] = torch.zeros((count, m.q_lora_rank), dtype=dt,
+                                      device=device)
     return p
 
 
@@ -359,21 +441,29 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
     up-projects all max_len rows, so its shapes are static and the
     kernel masks the rows past ``valid_len``.  q/k heads are nope + rope
     wide (192 on deepseek-v2) and v heads ``v_head_dim`` (128): the
-    kernels take Dv != D."""
-    m = cfg.mla
+    kernels take Dv != D.  With ``latent_norms`` the q latent and the kv
+    latent pass through their RMSNorms (the cache holds the normed kv
+    latent; the rope key is not normed); the rope part turns by
+    :func:`mla_rope` and the softmax takes :func:`mla_softmax_scale`."""
+    m = as_mla(cfg.mla)
     B, S, _ = x.shape
     H = cfg.n_heads
     cdt = getattr(torch, cfg.compute_dtype)
     if m.q_lora_rank:
-        q = (x @ p["w_dq"].to(cdt)) @ p["w_uq"].to(cdt)
+        q = x @ p["w_dq"].to(cdt)
+        if m.latent_norms:
+            q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        q = q @ p["w_uq"].to(cdt)
     else:
         q = x @ p["wq"].to(cdt)
     q = split_heads(q, H, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = mla_rope(cfg, q_rope, positions)
     c_kv = x @ p["w_dkv"].to(cdt)                                # (B,S,rank)
-    k_rope = apply_rope((x @ p["w_krope"].to(cdt))[:, :, None, :],
-                        positions, cfg.rope_theta)[:, :, 0]     # (B,S,rope)
+    if m.latent_norms:
+        c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = mla_rope(cfg, (x @ p["w_krope"].to(cdt))[:, :, None, :],
+                      positions)[:, :, 0]                       # (B,S,rope)
     valid_len = new_cache = None
     q_offset = 0
     if cache is None:
@@ -406,9 +496,8 @@ def mla_forward(cfg, p: Params, x, positions, cache=None, *, step=None):
         B, L, H, kr_all.shape[-1])], dim=-1)
     k = constrain(k, "heads")
     q = constrain(torch.cat([q_nope, q_rope], dim=-1), "heads")
-    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    out = attention(q, k, v, causal=True, q_offset=q_offset, scale=scale,
-                    valid_len=valid_len)
+    out = attention(q, k, v, causal=True, q_offset=q_offset,
+                    scale=mla_softmax_scale(m), valid_len=valid_len)
     out = constrain(out, "heads")
     out = merge_heads(out) @ p["wo"].to(cdt)
     return out, new_cache

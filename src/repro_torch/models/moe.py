@@ -15,6 +15,20 @@ products over the (E, C, d) buffer are plain batched matmuls, as the
 reference leaves them to XLA.  Shared experts run densely for every
 token.
 
+The published DeepSeek-V2 routing (``MoEConfig``: groups of experts of
+which a token may use the best ``topk_groups``, gates scaled by
+``routed_scale`` instead of renormalised) is the same kernel's, with the
+config's options.  A ``dropless`` layer (:func:`_moe_dropless`) routes
+every entry, as the published inference does, and may hold a share of
+the experts (``experts_held``: experts 0..held-1 of an expert-parallel
+layer): the router scores all of them, the kernel's dropless mode gives
+each entry its row in expert-sorted order, and the held experts' rows
+run through grouped products (:func:`grouped_mm`) whose cost follows
+the rows routed here; an entry routed to an expert held elsewhere adds
+nothing here.  Its counts (entries on held experts, drops, the most rows
+of one held expert in a prefill) are added on the device to the
+``obs.device_counters`` in force.
+
 Under a rule context whose mesh has more than one rank
 (``distributed.context.moe_shard_info``, the reference's condition) the
 layer takes the expert-parallel path, :func:`_moe_shard_map`: each rank
@@ -29,10 +43,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..configs.base import as_moe
 from ..core.streams import is_dtensor
 from ..distributed.context import constrain, manual_mode, moe_shard_info
 from ..distributed.sharding import P, as_like, axis_sizes, local_block
 from ..kernels import moe_gating
+from ..kernels.moe_gating.ops import moe_gating_dropless
+from ..obs import device_counters
 from .layers import dense_init, ffn_forward, init_ffn
 
 Params = dict
@@ -43,28 +60,32 @@ _EXPERTS_PER_DRAW = 8
 
 
 def _init_experts(gen, count: int, E: int, d_in: int, d_out: int, dtype,
-                  device) -> torch.Tensor:
-    """(count, E, d_in, d_out) expert weights in ``dtype``, drawn a few
-    experts at a time, each draw scaled as the whole (E, d_in, d_out)
-    weight: by 1/sqrt(E), the reference's rule for its first axis."""
-    w = torch.empty((count, E, d_in, d_out), dtype=dtype, device=device)
-    for e0 in range(0, E, _EXPERTS_PER_DRAW):
-        e1 = min(E, e0 + _EXPERTS_PER_DRAW)
+                  device, held: int | None = None) -> torch.Tensor:
+    """(count, held, d_in, d_out) expert weights in ``dtype`` (held = E
+    by default), drawn a few experts at a time, each draw scaled as the
+    whole (E, d_in, d_out) weight: by 1/sqrt(E), the reference's rule for
+    its first axis."""
+    held = E if held is None else held
+    w = torch.empty((count, held, d_in, d_out), dtype=dtype, device=device)
+    for e0 in range(0, held, _EXPERTS_PER_DRAW):
+        e1 = min(held, e0 + _EXPERTS_PER_DRAW)
         w[:, e0:e1] = dense_init(gen, (e1 - e0, d_in, d_out), dtype, device,
                                  scale=1.0 / math.sqrt(E), count=count)
     return w
 
 
 def init_moe(cfg, gen: torch.Generator, device, count: int = 1) -> Params:
-    """Router, routed experts and shared experts stacked over ``count``."""
-    m = cfg.moe
+    """Router (over every routed expert), the routed experts this device
+    holds and the shared experts, stacked over ``count``."""
+    m = as_moe(cfg.moe)
     d = cfg.d_model
     dt = getattr(torch, cfg.param_dtype)
     p = {
         "router": dense_init(gen, (d, m.n_experts), dt, device,
                              scale=0.02, count=count),
         "experts": {
-            name: _init_experts(gen, count, m.n_experts, a, b, dt, device)
+            name: _init_experts(gen, count, m.n_experts, a, b, dt, device,
+                                m.held)
             for name, a, b in (("w_gate", d, m.d_ff_expert),
                                ("w_up", d, m.d_ff_expert),
                                ("w_down", m.d_ff_expert, d))},
@@ -100,7 +121,7 @@ def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False,
     Returns (buf (E, C, d), slot, keep, gate, aux), the entries in
     flattened (token, k) order; the load-balance ``aux`` is None unless
     asked for."""
-    m = cfg.moe
+    m = as_moe(cfg.moe)
     Tg, d = xg.shape
     C = capacity(cfg, Tg)
     if is_dtensor(xg):
@@ -111,26 +132,47 @@ def _group_dispatch(cfg, router_w, xg, cdt, aux: bool = False,
             router_w = router_w.full_tensor()
     logits = xg.float() @ router_w
     eids, gates, slots, keep = moe_gating(logits.detach(), top_k=m.top_k,
-                                          capacity=C)
-    if logits.requires_grad:
-        # the kernel's gates again, with the router's gradient
-        g = torch.softmax(logits, dim=-1).gather(1, eids.long())
-        gates = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+                                          capacity=C, **_routing(m))
+    gates = _gates_with_grad(m, logits, eids, gates)
 
     aux = _load_balance_aux(cfg, logits, eids) if aux else None
     slot = slots.reshape(-1).long()
     keep = keep.reshape(-1)
     src = torch.arange(Tg, device=xg.device).repeat_interleave(m.top_k)
+    real = None
     if valid is not None:
         n, cap = valid
         at = slot - eids.reshape(-1).long() * C
-        keep = keep & (at < cap) & (src < n)
+        real = src < n
+        keep = keep & (at < cap) & real
+    counters = device_counters.active()
+    if counters is not None:
+        entries = torch.ones_like(keep) if real is None else real
+        counters.add("moe_dropped_entries", (entries & ~keep).sum())
     src = torch.where(keep, src, 0)
     gathered = torch.where(keep[:, None], xg[src].to(cdt), 0)
     buf = torch.zeros((m.n_experts * C, d), dtype=cdt, device=xg.device)
     buf.index_add_(0, slot, gathered)
     return (buf.reshape(m.n_experts, C, d), slot, keep,
             gates.reshape(-1).to(cdt), aux)
+
+
+def _routing(m) -> dict:
+    """The gating kernel's routing options of MoE config ``m``."""
+    return dict(n_groups=m.n_groups, topk_groups=m.topk_groups,
+                renormalize=m.renormalize, scale=m.routed_scale)
+
+
+def _gates_with_grad(m, logits, eids, gates):
+    """The kernel's ``gates``; under autograd the same gates again from
+    the logits (softmax gathered at the kernel's experts, renormalised or
+    scaled), with the router's gradient."""
+    if not logits.requires_grad:
+        return gates
+    g = torch.softmax(logits, dim=-1).gather(1, eids.long())
+    if m.renormalize:
+        return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+    return g * m.routed_scale
 
 
 def _load_balance_aux(cfg, logits, eids):
@@ -170,6 +212,86 @@ def _moe_local(cfg, p: Params, x, cdt, aux: bool = False, valid=None):
     out = _group_combine(ex_out.reshape(-1, d), slot, keep, gate, T,
                          m.top_k, d)
     return out.reshape(B, S, d), aux
+
+
+def grouped_mm(x, w, ends):
+    """x (N, K) @ w (G, K, M) by groups of rows: row r by w[g] for
+    ends[g-1] <= r < ends[g] (``ends`` (G,) int32 on the device, the
+    groups' end rows ascending; ends[-1] <= N).  Rows from ends[-1] on
+    are left undefined.  On the card ``torch._grouped_mm`` (bf16), which
+    reads the offsets on the device and computes the grouped rows alone;
+    elsewhere the plain version: each group's product over every row,
+    kept where the row is the group's (no host value read either)."""
+    if x.is_cuda:
+        return torch._grouped_mm(x, w, offs=ends)
+    group = torch.searchsorted(ends, torch.arange(
+        x.shape[0], device=x.device, dtype=ends.dtype), right=True)
+    out = x.new_zeros((x.shape[0], w.shape[-1]))
+    for g in range(w.shape[0]):
+        out = torch.where((group == g)[:, None], x @ w[g], out)
+    return out
+
+
+def _moe_dropless(cfg, p: Params, x, cdt, aux: bool = False, valid=None):
+    """The dropless path (module docstring).  x: (B, S, d) → (B, S, d),
+    the routed part of this device's held experts; aux (None unless asked
+    for).  ``valid``: (n, C(n)) of tokens padded at their tail (the
+    capacity unread): a pad token's entries add nothing and are not
+    counted."""
+    m = as_moe(cfg.moe)
+    B, S, d = x.shape
+    T, k, held = B * S, m.top_k, m.held
+    xt = x.reshape(T, d)
+    logits = xt.float() @ p["router"].float()
+    eids, gates, rows, keep, ends = moe_gating_dropless(
+        logits.detach(), top_k=k, held=held, **_routing(m))
+    gates = _gates_with_grad(m, logits, eids, gates)
+    aux = _load_balance_aux(cfg, logits, eids) if aux else None
+    rows = rows.reshape(-1).long()
+    keep = keep.reshape(-1)
+    src = torch.arange(T, device=x.device).repeat_interleave(k)
+    if valid is not None:
+        keep = keep & (src < valid[0])
+    _count_held(m, eids.reshape(-1).long(), keep, decode=S == 1)
+    # the entries' tokens in expert-sorted order: the held experts' rows
+    # first, ends[:held] their offsets
+    xs = xt.to(cdt).index_select(0, torch.empty_like(rows).scatter_(
+        0, rows, src))
+    w = p["experts"]
+    offs = ends[:held]
+    h = F.silu(grouped_mm(xs, w["w_gate"].to(cdt), offs)) \
+        * grouped_mm(xs, w["w_up"].to(cdt), offs)
+    h = grouped_mm(h, w["w_down"].to(cdt), offs)
+    # each token's k gated rows summed in f32: a row of an expert held
+    # elsewhere is undefined, and neither it nor a pad's enters the sum
+    contrib = h.index_select(0, rows).float() * gates.reshape(-1, 1)
+    contrib = torch.where(keep[:, None], contrib, 0.0)
+    return contrib.reshape(T, k, d).sum(1).to(cdt).reshape(B, S, d), aux
+
+
+def _count_held(m, eids, keep, *, decode: bool) -> None:
+    """Add a dropless call's counts to the device counters in force:
+    the layer call and its entries on held experts (``keep``), by decode
+    and prefill; in a prefill also the most entries of one held expert."""
+    counters = device_counters.active()
+    if counters is None:
+        return
+    phase = "decode" if decode else "prefill"
+    counters.add(f"moe_layer_calls_{phase}", 1)
+    counters.add(f"moe_held_entries_{phase}", keep.sum())
+    if not decode:
+        per_expert = torch.zeros(m.n_experts, dtype=torch.int64,
+                                 device=keep.device).index_add_(
+            0, eids, keep.long())
+        counters.maximum("moe_prefill_max_rows", per_expert.max())
+
+
+#: the device counters a serving engine keeps for a MoE model
+#: (``obs.device_counters``; the dropless path adds all but the drops, the
+#: capacity path the drops)
+COUNTERS = ("moe_layer_calls_decode", "moe_layer_calls_prefill",
+            "moe_held_entries_decode", "moe_held_entries_prefill",
+            "moe_prefill_max_rows", "moe_dropped_entries")
 
 
 def _all_gather(t, mesh, axes, dim: int):
@@ -231,8 +353,13 @@ def _moe_shard_map(cfg, p: Params, x, cdt, mesh, baxes, maxis,
     collectives are."""
     from torch.distributed.nn.functional import all_reduce
 
-    m = cfg.moe
+    m = as_moe(cfg.moe)
     E = m.n_experts
+    if m.held != E or m.dropless:
+        raise NotImplementedError(
+            f"the expert-parallel MoE exchanges every expert's capacity "
+            f"slots: a device holding {m.held} of {E} experts, or dropless "
+            f"routing, is not ported to it")
     all_axes = (*baxes, maxis)
     bspec = baxes if baxes else None
     x_spec = P(bspec, maxis, None)
@@ -280,15 +407,21 @@ def _moe_shard_map(cfg, p: Params, x, cdt, mesh, baxes, maxis,
 def moe_forward(cfg, p: Params, x, *, aux: bool = False, valid=None):
     """x: (B, S, d) → (B, S, d), aux_loss: the load-balance loss when
     ``aux``, else None (nothing on the serving path reads it).  Takes
-    :func:`_moe_shard_map` under the reference's conditions.  ``valid``:
+    :func:`_moe_shard_map` under the reference's conditions, and
+    :func:`_moe_dropless` where the config routes dropless.  ``valid``:
     (n, C(n)) for tokens padded at their tail (:func:`_group_dispatch`;
     the single-device path only)."""
     cdt = getattr(torch, cfg.compute_dtype)
+    m = as_moe(cfg.moe)
     B, S = x.shape[0], x.shape[1]
     info = moe_shard_info(B * S)
     if info is not None and valid is not None:
         raise NotImplementedError("a padded prompt through the "
                                   "expert-parallel MoE")
+    if not m.dropless and m.held != m.n_experts:
+        raise ValueError(f"a device holding {m.held} of {m.n_experts} "
+                         f"experts routes dropless (MoEConfig.dropless): "
+                         f"capacity slots are sized over every expert")
     if info is not None:
         mesh, baxes, maxis = info
         sizes = axis_sizes(mesh)
@@ -298,7 +431,8 @@ def moe_forward(cfg, p: Params, x, *, aux: bool = False, valid=None):
             btot *= sizes[a]
         if cfg.moe.n_experts % M == 0 and B % btot == 0 and S % M == 0:
             return _moe_shard_map(cfg, p, x, cdt, *info, aux=aux)
-    out, aux = _moe_local(cfg, p, x, cdt, aux, valid)
+    local = _moe_dropless if m.dropless else _moe_local
+    out, aux = local(cfg, p, x, cdt, aux, valid)
     if "shared" in p:
         out = out + ffn_forward(cfg, p["shared"], x.to(cdt))
     return out, aux

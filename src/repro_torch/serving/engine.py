@@ -46,8 +46,9 @@ one request carrying ``request=<id>``:
 * ``request.queue`` — a request's wait in the queue, from
   :meth:`submit` (or a preemption's re-queue, ``preempted=True``) to the
   tick that seats it; detached: it begins and ends on different threads;
-* ``engine.prefill`` (``slot``, ``length``) — one per seated request:
-  the cache reset, the prefill, the greedy token;
+* ``engine.prefill`` (``slot``, ``length``, ``rows``: the rows its
+  passes run, the prompt's bucket where it is padded to one) — one per
+  seated request: the cache reset, the prefill, the greedy token;
 * ``engine.decode`` (``slot``, ``pos``) — one per slot step;
 * ``engine.sync`` — the ``.item()`` of the greedy token, inside its
   ``engine.prefill`` or ``engine.decode``.
@@ -75,6 +76,14 @@ pass at offset 0 padded to a bucket (``transformer.takes_buckets``).  A
 failed capture raises: on the card nothing prefills eagerly.  On the
 CPU both stay eager.  The greedy token is read back with ``.item()``
 — one host sync per generated token.
+
+**MoE counts**: a MoE model's layers add their counts (the dropless
+path's entries on the experts held here by decode and prefill, the most
+rows of one held expert in a prefill; the capacity path's drops) to
+``device_counters`` (``obs.device_counters``), on the device, inside the
+graphs and the eager steps alike; :meth:`stats` reads them (one host
+sync), never a tick.  They start at 0 when the engine is built (the
+captures' warm-up passes are not counted).
 
 KV capacity is governed per bin by the :class:`PagedKVArena` buddy pool —
 a request is admitted only when its bin's arena can host its page run
@@ -111,7 +120,9 @@ from ..configs.base import ModelConfig
 from ..core import Executor, Heteroflow
 from ..core.memory import OutOfMemory
 from ..models import transformer
+from ..models.moe import COUNTERS as MOE_COUNTERS
 from ..obs import MetricsRegistry
+from ..obs.device_counters import DeviceCounters, counting
 from ..sched import (
     CostModel,
     Scheduler,
@@ -245,19 +256,28 @@ class ServingEngine:
         self._caches = [transformer.init_cache(cfg, 1, max_seq,
                                                device=self.device)
                         for _ in range(max_slots)]
-        #: the per-slot decode graphs on CUDA; None on the CPU (eager)
-        self.decode_graphs = (
-            DecodeGraphs(cfg, self.params, self._caches, self.device)
-            if self.device.type == "cuda" else None)
-        #: the per-slot prefill graphs on CUDA: the ladder for a family
-        #: that takes one, else the buckets; None on the CPU (eager)
-        self.prefill_graphs = None
-        if self.decode_graphs is not None:
-            kind = (PrefillGraphs if transformer.takes_ladder(cfg)
-                    else BucketPrefillGraphs)
-            self.prefill_graphs = kind(cfg, self.params, self._caches,
-                                       self.decode_graphs, max_seq,
-                                       self.device)
+        #: a MoE model's counts on the device (module docstring); None
+        #: without MoE
+        self.device_counters = (
+            DeviceCounters(MOE_COUNTERS, self.device)
+            if any(g.ffn_of(i) == "moe" for g in cfg.groups
+                   for i in range(len(g.pattern))) else None)
+        with counting(self.device_counters):
+            #: the per-slot decode graphs on CUDA; None on the CPU (eager)
+            self.decode_graphs = (
+                DecodeGraphs(cfg, self.params, self._caches, self.device)
+                if self.device.type == "cuda" else None)
+            #: the per-slot prefill graphs on CUDA: the ladder for a family
+            #: that takes one, else the buckets; None on the CPU (eager)
+            self.prefill_graphs = None
+            if self.decode_graphs is not None:
+                kind = (PrefillGraphs if transformer.takes_ladder(cfg)
+                        else BucketPrefillGraphs)
+                self.prefill_graphs = kind(cfg, self.params, self._caches,
+                                           self.decode_graphs, max_seq,
+                                           self.device)
+        if self.device_counters is not None:
+            self.device_counters.reset()
         self._obs = obs
         #: request id -> its open ``request.queue`` span (with a recorder)
         self._queue_spans: dict[int, int] = {}
@@ -518,13 +538,14 @@ class ServingEngine:
     def _tick(self) -> bool:
         """One engine iteration: admit → prefill news → decode actives."""
         obs = self._obs
-        if obs is None:
-            return self._tick_body(None)
-        sid = obs.begin("engine.tick")
-        try:
-            return self._tick_body(obs)
-        finally:
-            obs.end(sid)
+        with counting(self.device_counters):
+            if obs is None:
+                return self._tick_body(None)
+            sid = obs.begin("engine.tick")
+            try:
+                return self._tick_body(obs)
+            finally:
+                obs.end(sid)
 
     def _tick_body(self, obs) -> bool:
         self._ticks.inc()
@@ -572,8 +593,11 @@ class ServingEngine:
                     req._advance(state=PREFILL)
                     if obs is not None:
                         obs.end(self._queue_spans.pop(req.id))
+                        L = len(req.prompt)
+                        rows = (L if self.prefill_graphs is None else
+                                sum(self.prefill_graphs.plan(L)))
                         sid = obs.begin("engine.prefill", request=req.id,
-                                        slot=i, length=len(req.prompt))
+                                        slot=i, length=L, rows=rows)
                         if self._intervals is not None:
                             self._intervals.open()
                     # prefill this slot, from the state init_cache gives:
@@ -796,4 +820,6 @@ class ServingEngine:
             "ttft_p99_s": self._ttft.percentile(99),
             "itl_p50_s": self._itl.percentile(50),
             "itl_p99_s": self._itl.percentile(99),
+            **(self.device_counters.read()
+               if self.device_counters is not None else {}),
         }

@@ -482,6 +482,12 @@ class BucketPrefillGraphs:
         """The bucket a prompt of ``L`` tokens runs in."""
         return _bucket_of(self.sizes, L)
 
+    def plan(self, L: int) -> list[int]:
+        """The passes a prompt of ``L`` tokens runs as, in rows, as
+        :meth:`PrefillGraphs.plan` gives its chunks: one pass of its
+        bucket."""
+        return [_bucket_of(self.sizes, L)]
+
     def prefill(self, slot: int, prompt) -> torch.Tensor:
         """Prefill slot ``slot``'s caches (reset by the caller) with
         ``prompt`` ((L,) or (1, L) token ids: numpy, or a tensor on the

@@ -636,6 +636,100 @@ def test_moe_gating_kernel_repeats_bit_identically(cuda):
             assert all(torch.equal(f, g) for f, g in zip(first, got))
 
 
+#: the published DeepSeek-V2 routing, chip 0 of 8 holding experts 0-19
+DSV2_ROUTING = dict(top_k=6, n_groups=8, topk_groups=3, renormalize=False,
+                    scale=16.0)
+
+
+@pytest.mark.parametrize("T", [1, 1024, 8192])
+def test_moe_gating_dropless_kernel_matches_plain(cuda, T):
+    from repro_torch.kernels.moe_gating.ops import (
+        moe_gating_dropless, moe_gating_dropless_plain)
+    rng = np.random.default_rng(T + 160)
+    logits = _randn(rng, (T, 160), torch.float32, cuda) * 3
+    before = moe_gating.launches
+    got = moe_gating_dropless(logits, held=20, **DSV2_ROUTING)
+    torch.cuda.synchronize()
+    assert moe_gating.launches == before + 1
+    want = moe_gating_dropless_plain(logits, held=20, **DSV2_ROUTING)
+    _gating_equal(got[:4], want[:4])
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=0)
+    assert int(got[4][-1]) == 6 * T
+
+
+@pytest.mark.parametrize("T,C", [(1, 8), (512, 24), (4096, 64)])
+def test_moe_gating_kernel_takes_the_published_routing_with_capacity(
+        cuda, T, C):
+    rng = np.random.default_rng(T + 7)
+    logits = _randn(rng, (T, 160), torch.float32, cuda) * 3
+    _gating_equal(moe_gating(logits, capacity=C, **DSV2_ROUTING),
+                  moe_gating_plain(logits, capacity=C, **DSV2_ROUTING))
+
+
+def test_moe_gating_dropless_kernel_ties_take_the_lower_group_and_expert(
+        cuda):
+    """Logits of three values over 1500 tokens: group scores and probs
+    tie everywhere, ranked over 8 or 16 blocks."""
+    from repro_torch.kernels.moe_gating.ops import (
+        moe_gating_dropless, moe_gating_dropless_plain)
+    rng = np.random.default_rng(23)
+    logits = torch.tensor(rng.integers(0, 3, (1500, 160)),
+                          dtype=torch.float32, device=cuda)
+    got = moe_gating_dropless(logits, held=20, **DSV2_ROUTING)
+    want = moe_gating_dropless_plain(logits, held=20, **DSV2_ROUTING)
+    _gating_equal(got[:4], want[:4])
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=0)
+
+
+#: sha256 of the gating kernel's outputs in its first mode (softmax, top k,
+#: renormalised gates, capacity slots) on the cases of
+#: :func:`_first_mode_digest`, as the kernel gave them before it took the
+#: routing options and the dropless mode (the parent's source, built and
+#: run on an H100)
+FIRST_MODE_DIGEST = ("575b5f51d60f3010278ab7e393d9fca2"
+                     "fe952c4a59f6d502de9998d4a55484f0")
+
+
+def _first_mode_digest(device) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for T, E, k, C in [(1, 128, 1, 8), (512, 128, 1, 8), (4096, 160, 6, 64),
+                       (1, 160, 6, 8), (512, 160, 6, 24), (100, 8, 2, 16),
+                       (3000, 4, 2, 8), (1500, 64, 4, 24)]:
+        rng = np.random.default_rng(T * 1000 + E)
+        logits = torch.tensor(rng.standard_normal((T, E)) * 3,
+                              dtype=torch.float32, device=device)
+        for t in moe_gating(logits, top_k=k, capacity=C):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_moe_gating_kernel_first_mode_is_bit_identical_to_before(cuda):
+    assert _first_mode_digest(cuda) == FIRST_MODE_DIGEST
+
+
+def test_grouped_held_expert_product_equals_a_per_expert_loop(cuda):
+    """The dropless MoE's grouped product (``torch._grouped_mm`` over the
+    rows' offsets on the device) against a loop over the experts, each
+    group's rows by its own weight: empty groups, a group of one row,
+    rows past the last group (undefined, not compared)."""
+    from repro_torch.models.moe import grouped_mm
+    rng = np.random.default_rng(24)
+    counts = [0, 5, 0, 1, 17, 3, 0, 0, 9, 2, 0, 0, 1, 0, 6, 0, 0, 4, 0, 2]
+    ends = np.cumsum(counts)
+    N = int(ends[-1]) + 11
+    for K, M in ((5120, 1536), (1536, 5120)):
+        x = _randn(rng, (N, K), torch.bfloat16, cuda)
+        w = (_randn(rng, (len(counts), K, M), torch.float32, cuda)
+             / K ** 0.5).bfloat16()
+        got = grouped_mm(x, w, torch.tensor(ends, dtype=torch.int32,
+                                            device=cuda))
+        for g, (a, b) in enumerate(zip([0, *ends[:-1]], ends)):
+            want = x[a:b].float() @ w[g].float()
+            torch.testing.assert_close(got[a:b].float(), want, rtol=2 ** -7,
+                                       atol=1e-2)
+
+
 def _gating_equal(got, want):
     eids, gates, slots, keep = got
     torch.testing.assert_close(eids, want[0], rtol=0, atol=0)
